@@ -1,0 +1,180 @@
+"""Wrappers of the hand-written CUDA intersection kernels
+(``csrc/intersect.cu``), one per Pallas kernel they replace.
+
+Every wrapper takes ``(t, W)`` int32 bitset words, ``(M, 2)`` int32 pair
+indices and, for the classify variants, ``(t,)`` int32 parent popcounts and
+an integer ``tau``:
+
+* all tensors on the CPU: the plain PyTorch version (``ref.py``) computes
+  the result — the path the CPU tests take;
+* all tensors on one CUDA device: the kernel launches on the current stream
+  (no synchronisation) into outputs allocated here, and its launch count
+  goes up by one. A batch of ``M = 0`` pairs launches nothing.
+
+Anything else raises: there is no fallback from the kernel to the plain
+version, and a build or launch failure is an error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from . import ref as _ref
+
+__all__ = [
+    "LAUNCHES",
+    "reset_launches",
+    "intersect_classify_write_indexed",
+    "intersect_classify_count_indexed",
+    "intersect_write_indexed",
+    "intersect_count_indexed",
+]
+
+# launches of each kernel since the last reset_launches()
+LAUNCHES: dict[str, int] = {
+    "intersect_classify_write_indexed": 0,
+    "intersect_classify_count_indexed": 0,
+    "intersect_write_indexed": 0,
+    "intersect_count_indexed": 0,
+}
+
+_VP = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_INT = ctypes.c_int
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("intersect")
+    if lib.intersect_indexed.argtypes is None:
+        lib.intersect_indexed.argtypes = [
+            _VP, _LL, _LL, _VP, _LL, _VP, _INT, _VP, _VP, _VP, _INT, _INT, _INT, _VP,
+        ]
+        lib.intersect_indexed.restype = _INT
+        lib.intersect_error_string.argtypes = [_INT]
+        lib.intersect_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on one CUDA device, False when all lie on
+    the CPU; raises on anything else."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"kernel inputs must share one device, got {sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"no intersect kernel for device {device}")
+
+
+def _check(bits: torch.Tensor, pairs: torch.Tensor, parent_counts: torch.Tensor | None) -> None:
+    if bits.dtype != torch.int32 or bits.dim() != 2 or not bits.is_contiguous():
+        raise ValueError(
+            f"bits must be a contiguous (t, W) int32 tensor, got {bits.dtype} {tuple(bits.shape)}"
+        )
+    if (pairs.dtype != torch.int32 or pairs.dim() != 2 or pairs.shape[1] != 2
+            or not pairs.is_contiguous()):
+        raise ValueError(
+            f"pairs must be a contiguous (M, 2) int32 tensor, got {pairs.dtype} {tuple(pairs.shape)}"
+        )
+    if pairs.shape[0] >= 2**31:
+        raise ValueError(f"at most 2**31 - 1 pairs per launch, got {pairs.shape[0]}")
+    if parent_counts is not None and (
+        parent_counts.dtype != torch.int32
+        or tuple(parent_counts.shape) != (bits.shape[0],)
+        or not parent_counts.is_contiguous()
+    ):
+        raise ValueError(
+            f"parent_counts must be a contiguous ({bits.shape[0]},) int32 tensor, "
+            f"got {parent_counts.dtype} {tuple(parent_counts.shape)}"
+        )
+
+
+def _launch(name, bits, pairs, parent_counts, tau, child, cnt, cls) -> None:
+    m = pairs.shape[0]
+    if m == 0:
+        return
+    if not -(2**31) <= tau < 2**31:
+        raise ValueError(f"tau must fit int32, got {tau}")
+    t, w = bits.shape
+    vec4 = w % 4 == 0 and bits.data_ptr() % 16 == 0 and (child is None or child.data_ptr() % 16 == 0)
+    lib = _lib()
+    with torch.cuda.device(bits.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.intersect_indexed(
+            bits.data_ptr(), t, w, pairs.data_ptr(), m,
+            None if parent_counts is None else parent_counts.data_ptr(), int(tau),
+            None if child is None else child.data_ptr(), cnt.data_ptr(),
+            None if cls is None else cls.data_ptr(),
+            int(child is not None), int(cls is not None), int(vec4), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed: {lib.intersect_error_string(err).decode()}")
+    LAUNCHES[name] += 1
+
+
+def _empty(m: int, w: int | None, device) -> torch.Tensor:
+    shape = (m,) if w is None else (m, w)
+    return torch.empty(shape, dtype=torch.int32, device=device)
+
+
+def intersect_classify_write_indexed(
+    bits: torch.Tensor, pairs: torch.Tensor, parent_counts: torch.Tensor, tau: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(child (M, W), counts (M,), classes (M,)) — replaces the Pallas
+    ``intersect_classify_write_indexed``."""
+    _check(bits, pairs, parent_counts)
+    if not _on_cuda(bits, pairs, parent_counts):
+        return _ref.intersect_classify_ref(bits, pairs, parent_counts, tau)
+    m, w = pairs.shape[0], bits.shape[1]
+    child, cnt, cls = _empty(m, w, bits.device), _empty(m, None, bits.device), _empty(m, None, bits.device)
+    _launch("intersect_classify_write_indexed", bits, pairs, parent_counts, tau, child, cnt, cls)
+    return child, cnt, cls
+
+
+def intersect_classify_count_indexed(
+    bits: torch.Tensor, pairs: torch.Tensor, parent_counts: torch.Tensor, tau: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(counts (M,), classes (M,)), no child — replaces the Pallas
+    ``intersect_classify_count_indexed``."""
+    _check(bits, pairs, parent_counts)
+    if not _on_cuda(bits, pairs, parent_counts):
+        return _ref.intersect_classify_count_ref(bits, pairs, parent_counts, tau)
+    m = pairs.shape[0]
+    cnt, cls = _empty(m, None, bits.device), _empty(m, None, bits.device)
+    _launch("intersect_classify_count_indexed", bits, pairs, parent_counts, tau, None, cnt, cls)
+    return cnt, cls
+
+
+def intersect_write_indexed(
+    bits: torch.Tensor, pairs: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(child (M, W), counts (M,)) — replaces the Pallas
+    ``intersect_write_indexed``."""
+    _check(bits, pairs, None)
+    if not _on_cuda(bits, pairs):
+        return _ref.intersect_pairs_ref(bits, pairs)
+    m, w = pairs.shape[0], bits.shape[1]
+    child, cnt = _empty(m, w, bits.device), _empty(m, None, bits.device)
+    _launch("intersect_write_indexed", bits, pairs, None, 0, child, cnt, None)
+    return child, cnt
+
+
+def intersect_count_indexed(bits: torch.Tensor, pairs: torch.Tensor) -> torch.Tensor:
+    """counts (M,) only — replaces the Pallas ``intersect_count_indexed``."""
+    _check(bits, pairs, None)
+    if not _on_cuda(bits, pairs):
+        return _ref.intersect_count_ref(bits, pairs)
+    cnt = _empty(pairs.shape[0], None, bits.device)
+    _launch("intersect_count_indexed", bits, pairs, None, 0, None, cnt, None)
+    return cnt
