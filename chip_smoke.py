@@ -11,7 +11,9 @@ machine: the kernels build from the sources in the checkout into
    build with its register and shared-memory use (``-Xptxas -v``);
 2. kernels: every CUDA kernel against its plain PyTorch version on the card,
    bit for bit, at the main path's shapes and at edge cases, then timed with
-   CUDA events beside its memory bound and its plain version;
+   CUDA events beside its memory bound and its plain version (the gathered
+   kernels also beside the torch gather that feeds them); the donating
+   kernel must write its child over its first operand;
 3. main path: a cold mine of the paper's Poker-hand shape (1,000,000 rows,
    10 columns, tau=1, kmax=4, default settings) with ``engine="cuda"``, then
    with ``engine="torch"`` on the same card; itemsets and per-level stats
@@ -19,16 +21,25 @@ machine: the kernels build from the sources in the checkout into
    input is checked against the numpy engine and the brute-force oracle;
 4. host-classified path: a Connect-4-shaped mine (67,557 x 43, tau=1,
    kmax=3, ``fused_classify=False``), ``cuda`` against ``torch``; the unfused
-   kernels must have launched.
+   kernels must have launched;
+5. gathered path (``indexed_kernel=False``): the Poker-hand mine of phase 3
+   (the donating fused write kernel and the fused count kernel), the
+   Connect-4 mine of phase 4 (the unfused gathered kernels) and a fused
+   Connect-4 mine that does not donate (the non-donating fused write
+   kernel), each ``cuda`` against ``torch`` and against the indexed mine;
+6. checkpoint: the port's CLI mines a 100,000-row Poker-hand table with
+   ``--ckpt-dir``; the run is stopped after level 3 (level 4's checkpoint is
+   removed), restored from disk and resumed, and must equal the
+   uninterrupted mine.
 
 It prints a JSON line of per-kernel numbers and, last, the JSON status line.
 Any mismatch, build failure or missing card exits non-zero before that line.
 """
-
 from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -40,13 +51,21 @@ import torch
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "src/repro_torch/kernels/intersect/csrc/intersect.cu"
 # Pallas kernels replaced, by wrapper name: (file:line of the TPU kernel,
-# writes the child, classifies)
+# writes the child, classifies). The gathered wrappers (name ends in
+# "_gathered" or "_gathered_donating") take pre-gathered operand rows.
+_PALLAS = "src/repro/kernels/intersect/intersect.py"
 KERNELS = {
-    "intersect_classify_write_indexed": ("src/repro/kernels/intersect/intersect.py:330", True, True),
-    "intersect_classify_count_indexed": ("src/repro/kernels/intersect/intersect.py:388", False, True),
-    "intersect_write_indexed": ("src/repro/kernels/intersect/intersect.py:101", True, False),
-    "intersect_count_indexed": ("src/repro/kernels/intersect/intersect.py:148", False, False),
+    "intersect_classify_write_indexed": (f"{_PALLAS}:330", True, True),
+    "intersect_classify_count_indexed": (f"{_PALLAS}:388", False, True),
+    "intersect_write_indexed": (f"{_PALLAS}:101", True, False),
+    "intersect_count_indexed": (f"{_PALLAS}:148", False, False),
+    "intersect_classify_write_gathered": (f"{_PALLAS}:521", True, True),
+    "intersect_classify_write_gathered_donating": (f"{_PALLAS}:529", True, True),
+    "intersect_classify_count_gathered": (f"{_PALLAS}:537", False, True),
+    "intersect_write_gathered": (f"{_PALLAS}:208", True, False),
+    "intersect_count_gathered": (f"{_PALLAS}:244", False, False),
 }
+DONATING = "intersect_classify_write_gathered_donating"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores (data sheet)
 OPS_PER_WORD = 3  # AND, popcount, add per word of each pair
@@ -145,12 +164,38 @@ def _max_abs_err(got, want) -> int:
     return err
 
 
+def _gathered(name: str) -> bool:
+    return "_gathered" in name
+
+
+def _gather(bits, pairs, pc):
+    """The gathered kernels' operands, as the gathered dispatch builds them."""
+    from repro_torch.kernels.intersect import ref as R
+
+    return bits[pairs[:, 0]], bits[pairs[:, 1]], R.min_parent_ref(pc, pairs)
+
+
 def _call(name, bits, pairs, pc, tau):
+    """(kernel, plain) thunks of one wrapper on one input. A gathered wrapper
+    runs on operands gathered here once; the donating one writes over its
+    ``a``, and its plain version is the non-donating one."""
     from repro_torch.kernels import intersect as K
     from repro_torch.kernels.intersect import ref as R
 
     _, write, classify = KERNELS[name]
     kern = getattr(K, name)
+    as_tuple = lambda out: out if isinstance(out, tuple) else (out,)
+    if _gathered(name):
+        a, b, minp = _gather(bits, pairs, pc)
+        plain = {
+            "intersect_classify_write_gathered": R.intersect_classify_gathered_ref,
+            DONATING: R.intersect_classify_gathered_ref,
+            "intersect_classify_count_gathered": R.intersect_classify_count_gathered_ref,
+            "intersect_write_gathered": lambda a, b, m, t: R.intersect_gathered_ref(a, b),
+            "intersect_count_gathered": lambda a, b, m, t: (R.intersect_count_gathered_ref(a, b),),
+        }[name]
+        run = (lambda: kern(a, b, minp, tau)) if classify else (lambda: kern(a, b))
+        return (lambda: as_tuple(run())), (lambda: as_tuple(plain(a, b, minp, tau)))
     plain = {
         "intersect_classify_write_indexed": R.intersect_classify_ref,
         "intersect_classify_count_indexed": R.intersect_classify_count_ref,
@@ -161,15 +206,39 @@ def _call(name, bits, pairs, pc, tau):
         run = lambda: kern(bits, pairs, pc, tau)
     else:
         run = lambda: kern(bits, pairs)
-    as_tuple = lambda out: out if isinstance(out, tuple) else (out,)
     return (lambda: as_tuple(run())), (lambda: as_tuple(plain(bits, pairs, pc, tau)))
+
+
+def _check_donating(bits, pairs, pc, tau) -> int:
+    """The donating kernel on a copy of ``a``: its child must be that copy,
+    and equal the non-donating kernel's and plain version's outputs."""
+    from repro_torch.kernels import intersect as K
+    from repro_torch.kernels.intersect import ref as R
+
+    a, b, minp = _gather(bits, pairs, pc)
+    want = R.intersect_classify_gathered_ref(a, b, minp, tau)
+    other = K.intersect_classify_write_gathered(a, b, minp, tau)
+    a_own = a.clone()
+    got = K.intersect_classify_write_gathered_donating(a_own, b, minp, tau)
+    torch.cuda.synchronize()
+    if got[0].data_ptr() != a_own.data_ptr():
+        fail(f"{DONATING} W={bits.shape[1]} M={pairs.shape[0]}: the child is not written over a")
+    if _max_abs_err(got, other):
+        fail(f"{DONATING} W={bits.shape[1]} M={pairs.shape[0]} tau={tau}: "
+             "differs from intersect_classify_write_gathered")
+    return _max_abs_err(got, want)
 
 
 def _bound_ms(name, bits, pairs) -> tuple[float, str]:
     _, write, classify = KERNELS[name]
     m, w = pairs.shape[0], bits.shape[1]
-    unique_rows = int(torch.unique(pairs).numel())
-    read = unique_rows * w * 4 + m * 8 + (unique_rows * 4 if classify else 0)
+    if _gathered(name):
+        # both (M, W) operands read once, the child written once, 4 bytes of
+        # count per pair, and minp read + class written when classifying
+        read = 2 * m * w * 4 + (m * 4 if classify else 0)
+    else:
+        unique_rows = int(torch.unique(pairs).numel())
+        read = unique_rows * w * 4 + m * 8 + (unique_rows * 4 if classify else 0)
     written = (m * w * 4 if write else 0) + m * 4 + (m * 4 if classify else 0)
     bytes_s = (read + written) / HBM_BYTES_PER_S
     ops_s = OPS_PER_WORD * m * w / INT32_OPS_PER_S
@@ -194,12 +263,16 @@ def phase_kernels(device, n_words: int, batch_bucket: int):
             for bits, pairs, pc in [big, unaligned, *small]:
                 for tau in (0, 1, 5):
                     for mm in sorted({0, 1, pairs.shape[0]}):
-                        kern, plain = _call(name, bits, pairs[:mm].contiguous(), pc, tau)
-                        got, want = kern(), plain()
-                        torch.cuda.synchronize()
-                        if len(got) != len(want):
-                            fail(f"{name}: {len(got)} outputs, plain gives {len(want)}")
-                        err = _max_abs_err(got, want)
+                        sub = pairs[:mm].contiguous()
+                        if name == DONATING:
+                            err = _check_donating(bits, sub, pc, tau)
+                        else:
+                            kern, plain = _call(name, bits, sub, pc, tau)
+                            got, want = kern(), plain()
+                            torch.cuda.synchronize()
+                            if len(got) != len(want):
+                                fail(f"{name}: {len(got)} outputs, plain gives {len(want)}")
+                            err = _max_abs_err(got, want)
                         if err:
                             fail(f"{name} W={bits.shape[1]} M={mm} tau={tau}: max_abs_err={err}")
                         checks += 1
@@ -209,19 +282,29 @@ def phase_kernels(device, n_words: int, batch_bucket: int):
     rows = {}
     for name, (_, write, classify) in KERNELS.items():
         bits, pairs, pc = _kernel_inputs(parents[write], w_pad, batch_bucket, seed=11, device=device)
+        extra = {}
+        if _gathered(name):
+            extra["gather_ms"] = time_ms(lambda: _gather(bits, pairs, pc), 20)
         kern, plain = _call(name, bits, pairs, pc, 1)
-        err = _max_abs_err(kern(), plain())
+        if name == DONATING:
+            err = _check_donating(bits, pairs, pc, 1)
+        else:
+            err = _max_abs_err(kern(), plain())
+        # the donating kernel runs over its own output here: the same
+        # bytes move on every launch
         ms = time_ms(kern, 20)
         plain_ms = time_ms(plain, 5)
         bound_ms, bound_by = _bound_ms(name, bits, pairs)
         rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
-                      "t": parents[write], "W": w_pad, "M": batch_bucket}
-        del bits, pairs, pc
+                      "t": parents[write], "W": w_pad, "M": batch_bucket, **extra}
+        del bits, pairs, pc, kern, plain
         torch.cuda.empty_cache()
     print("phase kernels: ok " + json.dumps({"checks": checks, "kernels": [
         {"name": n, "kernel_ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "shape": {"t": r["t"], "W": r["W"], "M": r["M"]}}
+         "bound_by": r["bound_by"], "share": r["bound_ms"] / r["ms"],
+         **({"gather_ms": r["gather_ms"]} if "gather_ms" in r else {}),
+         "shape": {"t": r["t"], "W": r["W"], "M": r["M"]}}
         for n, r in rows.items()]}), flush=True)
     return rows
 
@@ -229,21 +312,29 @@ def phase_kernels(device, n_words: int, batch_bucket: int):
 # -- phases 3 and 4 ---------------------------------------------------------
 
 
-def _mine_pair(prep, cfg, label: str, kernels: tuple[str, ...]):
+def _mine_pair(prep, cfg, label: str, kernels: tuple[str, ...], *, donate: bool | None = None):
     """Mine ``prep`` with the cuda engine, then the torch engine; both must
-    agree, and each kernel in ``kernels`` must have launched in the cuda run."""
+    agree, and each kernel in ``kernels`` must have launched in the cuda run.
+    ``donate`` overrides the placement's choice of the donating kernel.
+    Returns (summary, launches, the cuda run's result)."""
+    from repro_torch.core import DevicePlacement
     from repro_torch.core.kyiv import mine_preprocessed
     from repro_torch.kernels.intersect import LAUNCHES, reset_launches
 
     runs = {}
     launches = None
     for engine in ("cuda", "torch"):
+        run_cfg = dataclasses.replace(cfg, engine=engine)
+        if donate is not None:
+            placement = DevicePlacement(engine, device=cfg.device, indexed=cfg.indexed_kernel)
+            placement.donate = donate
+            run_cfg = dataclasses.replace(run_cfg, placement=placement)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         if engine == "cuda":
             reset_launches()
         t0 = time.perf_counter()
-        res = mine_preprocessed(prep, dataclasses.replace(cfg, engine=engine))
+        res = mine_preprocessed(prep, run_cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         if engine == "cuda":
@@ -270,7 +361,18 @@ def _mine_pair(prep, cfg, label: str, kernels: tuple[str, ...]):
         "peak_level_bytes": cu.peak_level_bytes,
         "launches": {k: v for k, v in launches.items() if v},
     }
-    return summary, launches
+    return summary, launches, cu
+
+
+def _same_mine(got, want, label: str) -> None:
+    """Itemsets, per-level stat tuples and level_bytes identical."""
+    if sorted(got.itemsets) != sorted(want.itemsets):
+        fail(f"{label}: itemsets differ ({len(got.itemsets)} vs {len(want.itemsets)})")
+    if list(map(stat_tuple, got.stats)) != list(map(stat_tuple, want.stats)):
+        fail(f"{label}: per-level stats differ: {list(map(stat_tuple, got.stats))} vs "
+             f"{list(map(stat_tuple, want.stats))}")
+    if [s.level_bytes for s in got.stats] != [s.level_bytes for s in want.stats]:
+        fail(f"{label}: level_bytes differ")
 
 
 def phase_main(device):
@@ -295,7 +397,7 @@ def phase_main(device):
     cfg = KyivConfig(tau=1, kmax=4, engine="cuda", device=str(device))
     prep = prepare(D, cfg)
     prep_s = time.perf_counter() - t0
-    summary, launches = _mine_pair(
+    summary, launches, res = _mine_pair(
         prep, cfg, "poker",
         ("intersect_classify_write_indexed", "intersect_classify_count_indexed"),
     )
@@ -303,7 +405,7 @@ def phase_main(device):
                                           "W": prep.l_bits.shape[1], "n_l": prep.n_l,
                                           "tau": 1, "kmax": 4, "prepare_s": prep_s, **summary}),
           flush=True)
-    return launches
+    return launches, prep, res
 
 
 def phase_host_classified(device):
@@ -313,13 +415,108 @@ def phase_host_classified(device):
     D = connect_like()
     cfg = KyivConfig(tau=1, kmax=3, engine="cuda", device=str(device), fused_classify=False)
     prep = prepare(D, cfg)
-    summary, launches = _mine_pair(
+    summary, launches, res = _mine_pair(
         prep, cfg, "connect", ("intersect_write_indexed", "intersect_count_indexed")
     )
     print("phase host-classified: ok " + json.dumps({"dataset": "connect_like(n=67557, m=43)",
                                                      "W": prep.l_bits.shape[1], "n_l": prep.n_l,
                                                      "tau": 1, "kmax": 3, **summary}), flush=True)
+    return launches, prep, res
+
+
+# -- phases 5 and 6 ---------------------------------------------------------
+
+
+def phase_gathered(device, poker, connect):
+    """``indexed_kernel=False`` on the mines of phases 3 and 4; ``poker`` and
+    ``connect`` are those phases' (prep, indexed cuda result)."""
+    from repro_torch.core import KyivConfig
+
+    dev = str(device)
+    runs = [
+        ("poker-gathered", poker, KyivConfig(tau=1, kmax=4, device=dev, indexed_kernel=False),
+         (DONATING, "intersect_classify_count_gathered"), None),
+        ("connect-gathered", connect,
+         KyivConfig(tau=1, kmax=3, device=dev, fused_classify=False, indexed_kernel=False),
+         ("intersect_write_gathered", "intersect_count_gathered"), None),
+        # the placement donates on a card; this run keeps a separate child
+        ("connect-gathered-fused", connect,
+         KyivConfig(tau=1, kmax=3, device=dev, indexed_kernel=False),
+         ("intersect_classify_write_gathered", "intersect_classify_count_gathered"), False),
+    ]
+    launches, out = {}, {}
+    for label, (prep, indexed_res), cfg, kernels, donate in runs:
+        summary, got, res = _mine_pair(prep, cfg, label, kernels, donate=donate)
+        _same_mine(res, indexed_res, f"{label} against the indexed mine")
+        launches.update({k: got[k] for k in kernels if k not in launches})
+        out[label] = summary
+    print("phase gathered: ok " + json.dumps(out), flush=True)
     return launches
+
+
+def _resume_from_cli_checkpoint(ckpt_dir: Path, out_json: Path, prep, cfg):
+    """The state of a CLI run stopped after level 3, rebuilt from its
+    checkpoints (level 3's frontier, level 2's for the k_max bound lookups)
+    and from the itemsets and stats the run had emitted by then."""
+    from repro_torch.core import ItemsetIndex, Level, LevelStats, MiningState
+    from repro_torch.distributed.checkpoint import CheckpointManager
+
+    cm = CheckpointManager(str(ckpt_dir))
+    if cm.steps() != [2, 3, 4]:
+        fail(f"checkpoint: the CLI left steps {cm.steps()}, expected [2, 3, 4]")
+    # the run stops after level 3's checkpoint: level 4's never reaches disk
+    shutil.rmtree(ckpt_dir / f"ckpt_{4:010d}")
+    tree, meta = cm.restore()
+    if (meta["step"], meta["tau"], meta["kmax"], int(tree["next_k"])) != (3, cfg.tau, cfg.kmax, 4):
+        fail(f"checkpoint: restored meta {meta} next_k {tree['next_k']}")
+    parent, _ = cm.restore(step=2)
+    done = json.loads(out_json.read_text())
+    return MiningState(
+        results=[(tuple(r["items"]), r["count"]) for r in done["itemsets"] if len(r["items"]) <= 3],
+        stats=[LevelStats(**st) for st in done["stats"] if st["k"] <= 3],
+        level=Level(k=3, itemsets=tree["itemsets"], counts=tree["counts"], bits=tree["bits"]),
+        grandparent_index=ItemsetIndex(parent["itemsets"], parent["counts"], n_symbols=prep.n_l),
+        next_k=int(tree["next_k"]),
+    )
+
+
+def phase_checkpoint(device):
+    from repro_torch.core import KyivConfig, prepare
+    from repro_torch.core.kyiv import mine_preprocessed
+    from repro_torch.data.synth import poker_like
+    from repro_torch.launch import mine as launch_mine
+
+    n = 100_000
+    work = ROOT / "build" / "smoke_checkpoint"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        launch_mine.main(["--dataset", "poker", "--n", str(n), "--tau", "1", "--kmax", "4",
+                          "--engine", "cuda", "--device", str(device),
+                          "--ckpt-dir", str(work / "ckpt"), "--out", str(work / "out.json")])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cfg = KyivConfig(tau=1, kmax=4, device=str(device))
+        prep = prepare(poker_like(n=n, seed=0), cfg)
+        full = mine_preprocessed(prep, cfg)
+        done = json.loads((work / "out.json").read_text())
+        if sorted((tuple(r["items"]), r["count"]) for r in done["itemsets"]) != sorted(full.itemsets):
+            fail("checkpoint: the CLI's mine differs from the uninterrupted mine")
+        state = _resume_from_cli_checkpoint(work / "ckpt", work / "out.json", prep, cfg)
+        t0 = time.perf_counter()
+        resumed = mine_preprocessed(prep, cfg, resume_state=state)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        _same_mine(resumed, full, "checkpoint: resumed after level 3")
+        ckpt_bytes = sum(f.stat().st_size for f in (work / "ckpt").rglob("*") if f.is_file())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print("phase checkpoint: ok " + json.dumps({
+        "dataset": f"poker_like(n={n}, m=10, seed=0)", "tau": 1, "kmax": 4,
+        "emitted": len(full.itemsets), "cli_with_checkpoints_s": cli_s,
+        "uninterrupted_s": full.wall_time, "resume_s": resume_s, "checkpoint_bytes": ckpt_bytes,
+    }), flush=True)
 
 
 def main() -> None:
@@ -339,9 +536,13 @@ def main() -> None:
     from repro_torch.kernels.intersect import next_bucket
 
     timing = phase_kernels(device, n_words, next_bucket(batch_cap))
-    launches = phase_main(device)
-    launches.update({k: v for k, v in phase_host_classified(device).items()
+    launches, *poker = phase_main(device)
+    connect_launches, *connect = phase_host_classified(device)
+    launches.update({k: v for k, v in connect_launches.items()
                      if k in ("intersect_write_indexed", "intersect_count_indexed")})
+    launches.update(phase_gathered(device, poker, connect))
+    del poker, connect
+    phase_checkpoint(device)
 
     kernels = []
     for name, (replaces, _, _) in KERNELS.items():
@@ -351,6 +552,7 @@ def main() -> None:
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            **({"gather_ms": r["gather_ms"]} if "gather_ms" in r else {}),
         })
     print(f"total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,6 @@
 """The Kyiv breadth-first minimal τ-infrequent itemset miner (Demchuk &
 Leith 2014) in bitset form, on the host or on a torch device, plus a
-brute-force oracle.
+brute-force oracle and the MINIT baseline.
 
 ``bitops`` is imported first: the kernels package reads it while this
 package is still initialising.
@@ -32,6 +32,7 @@ from .kyiv import (
     mine_preprocessed,
     prepare,
 )
+from .minit import minit_minimal_infrequent
 from .oracle import brute_force_minimal_infrequent
 
 __all__ = [
@@ -72,4 +73,5 @@ __all__ = [
     "mine_preprocessed",
     "prepare",
     "brute_force_minimal_infrequent",
+    "minit_minimal_infrequent",
 ]

@@ -166,6 +166,9 @@ class KyivConfig:
     seed: int = 0  # random-ordering seed
     max_pairs_per_chunk: int = 1 << 22  # level spilling / bucket unit
     fused_classify: bool = True  # classify (Alg. 1 lines 32-41) on the engine
+    # indexed kernels read the pairs' parent rows themselves; False selects
+    # the gathered family (operand rows gathered by torch indexing first)
+    indexed_kernel: bool = True
     locality_sort: bool = True  # locality-aware pair schedule before dispatch
     double_buffer: bool = True  # overlap host candidate gen with device batches
     # run candidate generation, support tests and emit/store partitioning on

@@ -18,7 +18,8 @@ Implementations:
 * :class:`HostPlacement` — numpy on the host; no padding, eager dispatch.
   It is the reference path, bit-identical by construction.
 * :class:`DevicePlacement` — one torch device: the plain PyTorch versions
-  (``engine="torch"``) or the hand-written CUDA kernels (``engine="cuda"``).
+  (``engine="torch"``) or the hand-written CUDA kernels (``engine="cuda"``),
+  of the indexed kernel family or the gathered one (``indexed``).
   Parent bitsets go to the device once per level as int32 words, their word
   axis padded with zero words to a multiple of 4 (16-byte rows for the
   kernels' 128-bit loads); every batch then ships only its pair list.
@@ -136,13 +137,19 @@ class DevicePlacement:
     """One torch device, running the plain PyTorch versions (``torch``) or
     the CUDA kernels (``cuda``).
 
+    ``indexed=False`` selects the gathered kernel family: each batch gathers
+    its operand rows by torch indexing and the kernels read them in order.
+    On a CUDA device the gathered fused write path donates the gathered
+    operand (``donate``): the child is written over it, so a batch allocates
+    no child buffer, as the reference donates on accelerators only.
+
     A CUDA device must exist when one is asked for: construction raises
     otherwise, and nothing falls back to the CPU.
     """
 
     kind = "device"
 
-    def __init__(self, engine: str = "cuda", *, device="cuda"):
+    def __init__(self, engine: str = "cuda", *, device="cuda", indexed: bool = True):
         if engine not in ("torch", "cuda"):
             raise ValueError(f"DevicePlacement engine must be torch|cuda, got {engine!r}")
         device = torch.device(device)
@@ -155,6 +162,8 @@ class DevicePlacement:
             device = torch.device("cuda", torch.cuda.current_device())
         self.engine = engine
         self.device = device
+        self.indexed = indexed
+        self.donate = device.type == "cuda"
 
     def prepare(self, bits, parent_counts, tau: int, *, fused_classify: bool):
         # bits chained from the previous level are already resident (int32,
@@ -179,7 +188,8 @@ class DevicePlacement:
     def dispatch(self, state, padded_pairs, write_children: bool):
         _guard("dispatch")
         fn = _ops.build_engine_dispatch(
-            self.engine, fused_classify=state["fused"], write_children=write_children
+            self.engine, fused_classify=state["fused"], write_children=write_children,
+            indexed=self.indexed, donate=self.donate,
         )
         return fn(state["bits"], self._pairs(padded_pairs), state["pc"], state["tau"])
 
@@ -226,24 +236,26 @@ class DevicePlacement:
             state.pop("pc", None)
 
     def __repr__(self) -> str:
-        return f"DevicePlacement(engine={self.engine!r}, device={str(self.device)!r})"
+        return (f"DevicePlacement(engine={self.engine!r}, device={str(self.device)!r}, "
+                f"indexed={self.indexed!r})")
 
 
-def make_placement(engine: str, *, device="cuda"):
+def make_placement(engine: str, *, device="cuda", indexed: bool = True):
     """Placement for an engine name: ``numpy`` -> host, ``torch``/``cuda`` ->
-    one torch device."""
+    one torch device with the indexed or the gathered kernel family."""
     if engine == "numpy":
         return HostPlacement()
     if engine in ("torch", "cuda"):
-        return DevicePlacement(engine, device=device)
+        return DevicePlacement(engine, device=device, indexed=indexed)
     raise ValueError(f"no placement for engine {engine!r} (expected numpy|torch|cuda)")
 
 
 def resolve_placement(config):
     """``config.placement`` when set (a placement instance, or an engine name
     resolved through :func:`make_placement`); otherwise ``config.engine`` on
-    ``config.device``."""
+    ``config.device``, with ``config.indexed_kernel``'s kernel family."""
     p = config.placement
     if p is not None and not isinstance(p, str):
         return p
-    return make_placement(p if isinstance(p, str) else config.engine, device=config.device)
+    return make_placement(p if isinstance(p, str) else config.engine, device=config.device,
+                          indexed=config.indexed_kernel)

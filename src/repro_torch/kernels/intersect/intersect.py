@@ -1,15 +1,21 @@
 """Wrappers of the hand-written CUDA intersection kernels
 (``csrc/intersect.cu``), one per Pallas kernel they replace.
 
-Every wrapper takes ``(t, W)`` int32 bitset words, ``(M, 2)`` int32 pair
-indices and, for the classify variants, ``(t,)`` int32 parent popcounts and
-an integer ``tau``:
+The *indexed* wrappers take ``(t, W)`` int32 bitset words, ``(M, 2)`` int32
+pair indices and, for the classify variants, ``(t,)`` int32 parent
+popcounts and an integer ``tau``. The *gathered* wrappers take the operand
+rows already gathered, ``a`` and ``b`` of shape ``(M, W)`` int32, and for the
+classify variants ``(M,)`` int32 ``minp = min(pc[i], pc[j])`` and ``tau``.
+Every wrapper, on its inputs:
 
 * all tensors on the CPU: the plain PyTorch version (``ref.py``) computes
   the result — the path the CPU tests take;
 * all tensors on one CUDA device: the kernel launches on the current stream
   (no synchronisation) into outputs allocated here, and its launch count
   goes up by one. A batch of ``M = 0`` pairs launches nothing.
+
+The donating wrapper writes the child over ``a`` and returns ``a`` itself,
+on either device.
 
 Anything else raises: there is no fallback from the kernel to the plain
 version, and a build or launch failure is an error.
@@ -31,6 +37,11 @@ __all__ = [
     "intersect_classify_count_indexed",
     "intersect_write_indexed",
     "intersect_count_indexed",
+    "intersect_classify_write_gathered",
+    "intersect_classify_write_gathered_donating",
+    "intersect_classify_count_gathered",
+    "intersect_write_gathered",
+    "intersect_count_gathered",
 ]
 
 # launches of each kernel since the last reset_launches()
@@ -39,6 +50,11 @@ LAUNCHES: dict[str, int] = {
     "intersect_classify_count_indexed": 0,
     "intersect_write_indexed": 0,
     "intersect_count_indexed": 0,
+    "intersect_classify_write_gathered": 0,
+    "intersect_classify_write_gathered_donating": 0,
+    "intersect_classify_count_gathered": 0,
+    "intersect_write_gathered": 0,
+    "intersect_count_gathered": 0,
 }
 
 _VP = ctypes.c_void_p
@@ -58,6 +74,10 @@ def _lib() -> ctypes.CDLL:
             _VP, _LL, _LL, _VP, _LL, _VP, _INT, _VP, _VP, _VP, _INT, _INT, _INT, _VP,
         ]
         lib.intersect_indexed.restype = _INT
+        lib.intersect_gathered.argtypes = [
+            _VP, _VP, _LL, _LL, _VP, _INT, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP,
+        ]
+        lib.intersect_gathered.restype = _INT
         lib.intersect_error_string.argtypes = [_INT]
         lib.intersect_error_string.restype = ctypes.c_char_p
     return lib
@@ -177,4 +197,116 @@ def intersect_count_indexed(bits: torch.Tensor, pairs: torch.Tensor) -> torch.Te
         return _ref.intersect_count_ref(bits, pairs)
     cnt = _empty(pairs.shape[0], None, bits.device)
     _launch("intersect_count_indexed", bits, pairs, None, 0, None, cnt, None)
+    return cnt
+
+
+# -- gathered ----------------------------------------------------------------
+
+
+def _check_gathered(a: torch.Tensor, b: torch.Tensor, minp: torch.Tensor | None) -> None:
+    for name, x in (("a", a), ("b", b)):
+        if x.dtype != torch.int32 or x.dim() != 2 or not x.is_contiguous():
+            raise ValueError(
+                f"{name} must be a contiguous (M, W) int32 tensor, got {x.dtype} {tuple(x.shape)}"
+            )
+    if a.shape != b.shape:
+        raise ValueError(f"a and b must have one shape, got {tuple(a.shape)} and {tuple(b.shape)}")
+    if a.shape[0] >= 2**31:
+        raise ValueError(f"at most 2**31 - 1 pairs per launch, got {a.shape[0]}")
+    if minp is not None and (
+        minp.dtype != torch.int32 or tuple(minp.shape) != (a.shape[0],) or not minp.is_contiguous()
+    ):
+        raise ValueError(
+            f"minp must be a contiguous ({a.shape[0]},) int32 tensor, "
+            f"got {minp.dtype} {tuple(minp.shape)}"
+        )
+
+
+def _launch_gathered(name, a, b, minp, tau, child, cnt, cls, inplace=False) -> None:
+    m, w = a.shape
+    if m == 0:
+        return
+    if not -(2**31) <= tau < 2**31:
+        raise ValueError(f"tau must fit int32, got {tau}")
+    vec4 = (w % 4 == 0 and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+            and (child is None or child.data_ptr() % 16 == 0))
+    lib = _lib()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.intersect_gathered(
+            a.data_ptr(), b.data_ptr(), w, m,
+            None if minp is None else minp.data_ptr(), int(tau),
+            None if child is None else child.data_ptr(), cnt.data_ptr(),
+            None if cls is None else cls.data_ptr(),
+            int(inplace or child is not None), int(cls is not None), int(inplace), int(vec4), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed: {lib.intersect_error_string(err).decode()}")
+    LAUNCHES[name] += 1
+
+
+def intersect_classify_write_gathered(
+    a: torch.Tensor, b: torch.Tensor, minp: torch.Tensor, tau: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(child (M, W), counts (M,), classes (M,)) of pre-gathered operands —
+    replaces the Pallas ``intersect_classify_write_gathered``."""
+    _check_gathered(a, b, minp)
+    if not _on_cuda(a, b, minp):
+        return _ref.intersect_classify_gathered_ref(a, b, minp, tau)
+    m, w = a.shape
+    child, cnt, cls = _empty(m, w, a.device), _empty(m, None, a.device), _empty(m, None, a.device)
+    _launch_gathered("intersect_classify_write_gathered", a, b, minp, tau, child, cnt, cls)
+    return child, cnt, cls
+
+
+def intersect_classify_write_gathered_donating(
+    a: torch.Tensor, b: torch.Tensor, minp: torch.Tensor, tau: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(a, counts (M,), classes (M,)): the child is written over ``a``,
+    which is returned as the child — replaces the Pallas
+    ``intersect_classify_write_gathered_donating`` (its donated ``a``)."""
+    _check_gathered(a, b, minp)
+    if not _on_cuda(a, b, minp):
+        return _ref.intersect_classify_gathered_ref(a, b, minp, tau, out=a)
+    m = a.shape[0]
+    cnt, cls = _empty(m, None, a.device), _empty(m, None, a.device)
+    _launch_gathered("intersect_classify_write_gathered_donating", a, b, minp, tau, None, cnt, cls,
+                     inplace=True)
+    return a, cnt, cls
+
+
+def intersect_classify_count_gathered(
+    a: torch.Tensor, b: torch.Tensor, minp: torch.Tensor, tau: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(counts (M,), classes (M,)) of pre-gathered operands, no child —
+    replaces the Pallas ``intersect_classify_count_gathered``."""
+    _check_gathered(a, b, minp)
+    if not _on_cuda(a, b, minp):
+        return _ref.intersect_classify_count_gathered_ref(a, b, minp, tau)
+    m = a.shape[0]
+    cnt, cls = _empty(m, None, a.device), _empty(m, None, a.device)
+    _launch_gathered("intersect_classify_count_gathered", a, b, minp, tau, None, cnt, cls)
+    return cnt, cls
+
+
+def intersect_write_gathered(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(child (M, W), counts (M,)) of pre-gathered operands — replaces the
+    Pallas ``intersect_write_gathered``."""
+    _check_gathered(a, b, None)
+    if not _on_cuda(a, b):
+        return _ref.intersect_gathered_ref(a, b)
+    m, w = a.shape
+    child, cnt = _empty(m, w, a.device), _empty(m, None, a.device)
+    _launch_gathered("intersect_write_gathered", a, b, None, 0, child, cnt, None)
+    return child, cnt
+
+
+def intersect_count_gathered(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """counts (M,) of pre-gathered operands only — replaces the Pallas
+    ``intersect_count_gathered``."""
+    _check_gathered(a, b, None)
+    if not _on_cuda(a, b):
+        return _ref.intersect_count_gathered_ref(a, b)
+    cnt = _empty(a.shape[0], None, a.device)
+    _launch_gathered("intersect_count_gathered", a, b, None, 0, None, cnt, None)
     return cnt

@@ -7,7 +7,10 @@ buckets, dispatches to one of the engines through a placement
 
 * ``numpy`` — host vectorised ``np.bitwise_and`` + ``np.bitwise_count``;
 * ``torch`` — the plain PyTorch versions of ``ref.py``, on any device;
-* ``cuda``  — the hand-written CUDA kernels (``intersect.py``).
+* ``cuda``  — the hand-written CUDA kernels (``intersect.py``),
+
+each device engine in the indexed kernel family or the gathered one
+(:func:`build_engine_dispatch`'s ``indexed``).
 
 :class:`LevelPipeline` is the batch pipeline used by
 ``repro_torch.core.kyiv``. The placement supplies residency (parent bitsets
@@ -42,6 +45,8 @@ from .ref import CLASS_EMIT, CLASS_SKIP, CLASS_STORE
 __all__ = [
     "classify_counts_host",
     "build_engine_dispatch",
+    "intersect_and_count",
+    "intersect_classify",
     "locality_order",
     "next_bucket",
     "LevelPipeline",
@@ -149,26 +154,131 @@ class BatchHandle:
         return self._raw
 
 
-def build_engine_dispatch(engine: str, *, fused_classify: bool, write_children: bool):
+def build_engine_dispatch(
+    engine: str,
+    *,
+    fused_classify: bool,
+    write_children: bool,
+    indexed: bool = True,
+    donate: bool = False,
+):
     """The single-device dispatch callable of one engine and kernel variant:
     ``fn(bits, pairs, pc, tau) -> (child | None, cnt, cls | None)`` on
     ``(t, W)`` int32 words, ``(M, 2)`` int32 pairs and ``(t,)`` int32
-    popcounts."""
-    if engine == "torch":
-        write_cls, count_cls = _ref.intersect_classify_ref, _ref.intersect_classify_count_ref
-        write, count = _ref.intersect_pairs_ref, _ref.intersect_count_ref
-    elif engine == "cuda":
-        write_cls, count_cls = _k.intersect_classify_write_indexed, _k.intersect_classify_count_indexed
-        write, count = _k.intersect_write_indexed, _k.intersect_count_indexed
-    else:
+    popcounts.
+
+    ``indexed`` picks the kernel family: the indexed kernels read the pairs'
+    parent rows themselves; the gathered ones take ``a = bits[i]``,
+    ``b = bits[j]`` and ``minp = min(pc[i], pc[j])`` gathered here by torch
+    indexing, as the reference gathers them outside Pallas. ``donate`` (the
+    gathered fused write path only) writes each child over its gathered
+    ``a``, so the batch allocates no child buffer."""
+    if engine not in ("torch", "cuda"):
         raise ValueError(f"engine must be torch|cuda, got {engine!r}")
+    if indexed:
+        if engine == "torch":
+            write_cls, count_cls = _ref.intersect_classify_ref, _ref.intersect_classify_count_ref
+            write, count = _ref.intersect_pairs_ref, _ref.intersect_count_ref
+        else:
+            write_cls, count_cls = _k.intersect_classify_write_indexed, _k.intersect_classify_count_indexed
+            write, count = _k.intersect_write_indexed, _k.intersect_count_indexed
+        if fused_classify:
+            if write_children:
+                return write_cls
+            return lambda bits, pairs, pc, tau: (None, *count_cls(bits, pairs, pc, tau))
+        if write_children:
+            return lambda bits, pairs, pc, tau: (*write(bits, pairs), None)
+        return lambda bits, pairs, pc, tau: (None, count(bits, pairs), None)
+
+    if engine == "torch":
+        write_cls = (
+            (lambda a, b, minp, tau: _ref.intersect_classify_gathered_ref(a, b, minp, tau, out=a))
+            if donate else _ref.intersect_classify_gathered_ref
+        )
+        count_cls = _ref.intersect_classify_count_gathered_ref
+        write, count = _ref.intersect_gathered_ref, _ref.intersect_count_gathered_ref
+    else:
+        write_cls = (
+            _k.intersect_classify_write_gathered_donating
+            if donate else _k.intersect_classify_write_gathered
+        )
+        count_cls = _k.intersect_classify_count_gathered
+        write, count = _k.intersect_write_gathered, _k.intersect_count_gathered
+
+    def gather(bits, pairs):
+        return bits[pairs[:, 0]], bits[pairs[:, 1]]
+
     if fused_classify:
         if write_children:
-            return write_cls
-        return lambda bits, pairs, pc, tau: (None, *count_cls(bits, pairs, pc, tau))
+            return lambda bits, pairs, pc, tau: write_cls(
+                *gather(bits, pairs), _ref.min_parent_ref(pc, pairs), tau
+            )
+        return lambda bits, pairs, pc, tau: (
+            None, *count_cls(*gather(bits, pairs), _ref.min_parent_ref(pc, pairs), tau)
+        )
     if write_children:
-        return lambda bits, pairs, pc, tau: (*write(bits, pairs), None)
-    return lambda bits, pairs, pc, tau: (None, count(bits, pairs), None)
+        return lambda bits, pairs, pc, tau: (*write(*gather(bits, pairs)), None)
+    return lambda bits, pairs, pc, tau: (None, count(*gather(bits, pairs)), None)
+
+
+def intersect_and_count(
+    bits,
+    pairs: np.ndarray,
+    *,
+    write_children: bool,
+    engine: str = "cuda",
+    device="cuda",
+    indexed: bool = True,
+):
+    """One-shot ``child = bits[i] & bits[j]`` and/or ``counts = |child|``.
+
+    ``bits`` are (t, W) uint32 host bitsets, ``pairs`` (M, 2) row indices;
+    ``engine`` is ``numpy`` / ``torch`` / ``cuda`` on ``device``, and
+    ``indexed`` picks the kernel family. Returns ``(child (M, W) uint32 |
+    None, counts (M,) int64)`` on the host."""
+    bits = np.asarray(bits)
+    pipe = LevelPipeline(
+        bits, np.zeros(bits.shape[0], dtype=np.int64), tau=0,
+        placement=_placement(engine, device, indexed),
+        fused_classify=False, locality_sort=False,
+    )
+    try:
+        child, counts, _ = pipe.submit(np.asarray(pairs), write_children).result()
+    finally:
+        pipe.retire()
+    return child, counts
+
+
+def intersect_classify(
+    bits,
+    pairs: np.ndarray,
+    parent_counts: np.ndarray,
+    *,
+    tau: int,
+    write_children: bool,
+    engine: str = "cuda",
+    device="cuda",
+    indexed: bool = True,
+    locality_sort: bool = True,
+):
+    """Fused intersect + classify, one shot through :class:`LevelPipeline`.
+
+    Returns ``(child | None, counts (M,) int64, classes (M,) int32)`` on the
+    host, classes in {CLASS_SKIP, CLASS_EMIT, CLASS_STORE}."""
+    pipe = LevelPipeline(
+        bits, parent_counts, tau=tau, placement=_placement(engine, device, indexed),
+        fused_classify=True, locality_sort=locality_sort,
+    )
+    try:
+        return pipe.submit(np.asarray(pairs), write_children).result()
+    finally:
+        pipe.retire()
+
+
+def _placement(engine: str, device, indexed: bool):
+    from ...core.placement import make_placement  # deferred: placement imports this module
+
+    return make_placement(engine, device=device, indexed=indexed)
 
 
 class LevelPipeline:

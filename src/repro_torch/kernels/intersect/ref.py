@@ -5,6 +5,11 @@ reduce. Bitsets are ``(t, W)`` int32 views of the uint32 words. These
 functions fix the semantics the CUDA kernels must reproduce bit for bit (the
 ops are integer, so the tolerance is zero); the CPU path of every kernel
 wrapper and the ``torch`` engine run them directly.
+
+Two families, as in the kernels: the *indexed* functions take the parent
+table ``bits`` and ``(M, 2)`` pair indices; the *gathered* ones take the two
+operand rows already gathered, ``a`` and ``b`` of shape ``(M, W)``, and for
+the classify variants the per-pair ``minp = min(pc[i], pc[j])``.
 """
 
 from __future__ import annotations
@@ -15,11 +20,16 @@ from ...core.bitops import popcount_rows_torch
 
 __all__ = [
     "popcount_rows_ref",
+    "intersect_gathered_ref",
+    "intersect_count_gathered_ref",
+    "intersect_classify_gathered_ref",
+    "intersect_classify_count_gathered_ref",
     "intersect_pairs_ref",
     "intersect_count_ref",
     "classify_counts_ref",
     "intersect_classify_ref",
     "intersect_classify_count_ref",
+    "min_parent_ref",
     "CLASS_SKIP",
     "CLASS_EMIT",
     "CLASS_STORE",
@@ -39,11 +49,28 @@ def popcount_rows_ref(bits: torch.Tensor) -> torch.Tensor:
     return popcount_rows_torch(bits)
 
 
+def intersect_gathered_ref(
+    a: torch.Tensor, b: torch.Tensor, *, out: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """AND + popcount of two aligned (M, W) bitset matrices.
+
+    Returns (child (M, W) int32, counts (M,) int32). ``out=a`` writes the
+    child over ``a`` (the plain version of the in-place kernel)."""
+    child = torch.bitwise_and(a, b, out=out)
+    return child, popcount_rows_ref(child)
+
+
+def intersect_count_gathered_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Count-only variant over aligned operands: no child bitset is kept."""
+    return intersect_gathered_ref(a, b)[1]
+
+
 def intersect_pairs_ref(bits: torch.Tensor, pairs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Gather rows ``pairs[:, 0]``/``pairs[:, 1]`` of (t, W) ``bits``, AND, popcount.
 
     Returns (child_bits (M, W) int32, counts (M,) int32).
     """
+    # the second gathered operand is freed before the popcount's temporaries
     child = bits[pairs[:, 0]]
     child &= bits[pairs[:, 1]]
     return child, popcount_rows_ref(child)
@@ -64,8 +91,27 @@ def classify_counts_ref(counts: torch.Tensor, minp: torch.Tensor, tau: int) -> t
     return cls
 
 
-def _min_parent(parent_counts: torch.Tensor, pairs: torch.Tensor) -> torch.Tensor:
+def min_parent_ref(parent_counts: torch.Tensor, pairs: torch.Tensor) -> torch.Tensor:
+    """(M,) ``min(pc[i], pc[j])`` of each pair: the gathered kernels' ``minp``."""
     return torch.minimum(parent_counts[pairs[:, 0]], parent_counts[pairs[:, 1]])
+
+
+def intersect_classify_gathered_ref(
+    a: torch.Tensor, b: torch.Tensor, minp: torch.Tensor, tau: int,
+    *, out: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused over aligned operands: child + popcounts + class codes.
+    ``out=a`` writes the child over ``a``."""
+    child, counts = intersect_gathered_ref(a, b, out=out)
+    return child, counts, classify_counts_ref(counts, minp, tau)
+
+
+def intersect_classify_count_gathered_ref(
+    a: torch.Tensor, b: torch.Tensor, minp: torch.Tensor, tau: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused count-only over aligned operands: counts + class codes."""
+    counts = intersect_count_gathered_ref(a, b)
+    return counts, classify_counts_ref(counts, minp, tau)
 
 
 def intersect_classify_ref(
@@ -73,7 +119,7 @@ def intersect_classify_ref(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused: child bitsets + popcounts + per-pair class codes."""
     child, counts = intersect_pairs_ref(bits, pairs)
-    return child, counts, classify_counts_ref(counts, _min_parent(parent_counts, pairs), tau)
+    return child, counts, classify_counts_ref(counts, min_parent_ref(parent_counts, pairs), tau)
 
 
 def intersect_classify_count_ref(
@@ -81,4 +127,4 @@ def intersect_classify_count_ref(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused count-only (k = k_max): counts + class codes, no child bitset."""
     counts = intersect_count_ref(bits, pairs)
-    return counts, classify_counts_ref(counts, _min_parent(parent_counts, pairs), tau)
+    return counts, classify_counts_ref(counts, min_parent_ref(parent_counts, pairs), tau)

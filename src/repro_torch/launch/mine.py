@@ -1,12 +1,16 @@
-"""Mining CLI: dataset -> Kyiv -> minimal τ-infrequent itemsets.
+"""Mining CLI: dataset -> Kyiv -> minimal τ-infrequent itemsets, with
+optional level checkpointing.
 
   python -m repro_torch.launch.mine --dataset poker --n 100000 --tau 1 --kmax 4
   python -m repro_torch.launch.mine --engine torch --device cpu --n 2000
   python -m repro_torch.launch.mine --fimi path/to/connect.dat ...
+  python -m repro_torch.launch.mine --ckpt-dir /path/to/ckpts ...
 
 Runs the CUDA kernels on the card by default (``--engine cuda``); with no
 card that raises, and ``--device cpu`` or ``--engine numpy`` mines on the
-CPU.
+CPU. ``--ckpt-dir`` saves every level boundary (``ckpt_<level>``: the stored
+level's ``itemsets``, ``counts`` and host ``bits``, and ``next_k``, with meta
+``tau`` and ``kmax``) in the reference package's checkpoint format.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from ..core import KyivConfig, itemize, preprocess
 from ..core.kyiv import mine_preprocessed
 from ..data.loaders import read_fimi
 from ..data.synth import DATASETS
+from ..distributed.checkpoint import CheckpointManager
 
 
 def main(argv=None) -> None:
@@ -34,6 +39,7 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda", help="torch device of the torch/cuda engines")
     ap.add_argument("--no-fused-classify", action="store_true",
                     help="classify on the host (the unfused baseline path)")
+    ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="write results JSON here")
     args = ap.parse_args(argv)
@@ -51,7 +57,18 @@ def main(argv=None) -> None:
                      use_bounds=not args.no_bounds, engine=args.engine, device=args.device,
                      fused_classify=not args.no_fused_classify)
     prep = preprocess(itemize(D), cfg.tau, ordering=cfg.ordering, seed=cfg.seed)
-    res = mine_preprocessed(prep, cfg)
+
+    hook = None
+    if args.ckpt_dir:
+        cm = CheckpointManager(args.ckpt_dir)
+
+        def hook(k, state):
+            lvl = state["level"]
+            cm.save(k, {"itemsets": lvl.itemsets, "counts": lvl.counts,
+                        "bits": lvl.bits, "next_k": state["next_k"]},
+                    {"tau": cfg.tau, "kmax": cfg.kmax})
+
+    res = mine_preprocessed(prep, cfg, on_level_end=hook)
 
     print(f"dataset {D.shape}, |L| = {prep.n_l}, tau={cfg.tau}, kmax={cfg.kmax}, "
           f"engine={cfg.engine}, device={cfg.device}")
