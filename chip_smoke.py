@@ -30,7 +30,20 @@ machine: the kernels build from the sources in the checkout into
 6. checkpoint: the port's CLI mines a 100,000-row Poker-hand table with
    ``--ckpt-dir``; the run is stopped after level 3 (level 4's checkpoint is
    removed), restored from disk and resumed, and must equal the
-   uninterrupted mine.
+   uninterrupted mine;
+7. privacy: the exposed table (``exposed_dataset``, 500,000 x 6, tau=1,
+   kmax=3; cut from 1,000,000 rows, whose numpy-engine mine alone takes
+   over a minute of host time, PERF.md) mined with ``engine="cuda"``,
+   ``"torch"`` and ``"numpy"`` (all equal), its quasi-identifier report and
+   record-risk profile through the coverage kernel (equal to the torch and
+   host placements' profiles; the kernel must have launched), then a
+   verified anonymization plan of the 100,000-row table on the card;
+8. coverage-kernel: the coverage kernel against its plain version on the
+   card, bit for bit, over widths, set sizes, batch sizes and weights that
+   overflow int32 (320 checks), and against the numpy host engine on small
+   inputs, then timed at the privacy path's batch shape (W = 15,628,
+   M = 8,192, K = 3) on real quasi-identifiers of phase 7 (sparse) and on
+   random rows (dense).
 
 It prints a JSON line of per-kernel numbers and, last, the JSON status line.
 Any mismatch, build failure or missing card exits non-zero before that line.
@@ -50,6 +63,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "src/repro_torch/kernels/intersect/csrc/intersect.cu"
+COVERAGE = "coverage_accumulate_indexed"
+COVERAGE_SOURCE = "src/repro_torch/kernels/coverage/csrc/coverage.cu"
+COVERAGE_REPLACES = "src/repro/kernels/coverage/coverage.py:72"
+PRIVACY_ROWS = 500_000
 # Pallas kernels replaced, by wrapper name: (file:line of the TPU kernel,
 # writes the child, classifies). The gathered wrappers (name ends in
 # "_gathered" or "_gathered_donating") take pre-gathered operand rows.
@@ -519,6 +536,243 @@ def phase_checkpoint(device):
     }), flush=True)
 
 
+# -- phases 7 and 8 ---------------------------------------------------------
+
+
+def _same_profile(got, want, label: str) -> None:
+    for name in ("counts_by_size", "qi_count", "min_qi_size", "risk"):
+        if not np.array_equal(getattr(got, name), getattr(want, name)):
+            fail(f"{label}: {name} differs")
+
+
+def phase_privacy(device):
+    """The privacy path on the exposed table: the mine on three engines, the
+    report and risk profile through the coverage kernel against the torch
+    and host placements, then the planner on the card. Returns the coverage
+    kernel's launches on the path, the table's host bitsets and its size-3
+    quasi-identifiers (the kernel timing's sparse case)."""
+    from repro_torch.core import DevicePlacement, HostPlacement, KyivConfig, prepare
+    from repro_torch.core.kyiv import mine_preprocessed
+    from repro_torch.data.synth import exposed_dataset
+    from repro_torch.kernels import coverage as C
+    from repro_torch.privacy import apply_plan, mine_masked, plan_anonymization, risk_profile
+    from repro_torch.sdc.quasi import QuasiIdentifierReport, report_as_dict
+
+    dev = str(device)
+    t0 = time.perf_counter()
+    D = exposed_dataset(n=PRIVACY_ROWS, m=6, seed=0)
+    cfg = KyivConfig(tau=1, kmax=3, device=dev)
+    prep = prepare(D, cfg)
+    prep_s = time.perf_counter() - t0
+    res, wall = {}, {}
+    for engine in ("cuda", "torch", "numpy"):
+        t0 = time.perf_counter()
+        res[engine] = mine_preprocessed(prep, dataclasses.replace(cfg, engine=engine))
+        torch.cuda.synchronize()
+        wall[f"mine_{engine}_s"] = time.perf_counter() - t0
+    for engine in ("torch", "numpy"):
+        _same_mine(res[engine], res["cuda"], f"privacy: the {engine} mine against the cuda mine")
+
+    # the main path: the report's risk profile through the coverage kernel
+    # (on the mine's own placement), then the report
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    C.reset_launches()
+    report = QuasiIdentifierReport(result=res["cuda"], tau=1, kmax=3)
+    t0 = time.perf_counter()
+    profile = report.profile()
+    torch.cuda.synchronize()
+    wall["risk_profile_cuda_s"] = time.perf_counter() - t0
+    got = report_as_dict(report)
+    wall["report_cuda_s"] = time.perf_counter() - t0
+    launches = C.LAUNCHES[COVERAGE]
+    peak = torch.cuda.max_memory_allocated()
+    if launches == 0:
+        fail(f"privacy: the risk profile never launched {COVERAGE}")
+    placements = {"torch": DevicePlacement("torch", device=dev), "numpy": HostPlacement()}
+    for engine, placement in placements.items():
+        t0 = time.perf_counter()
+        prof = risk_profile(res[engine], placement=placement)
+        torch.cuda.synchronize()
+        wall[f"risk_profile_{engine}_s"] = time.perf_counter() - t0
+        _same_profile(prof, profile, f"privacy: the {engine} placement's profile")
+        want = report_as_dict(QuasiIdentifierReport(result=res[engine], tau=1, kmax=3, _profile=prof))
+        if json.dumps(want) != json.dumps(got):
+            fail(f"privacy: the {engine} report differs from the cuda report")
+    by_size = report.by_size()
+    qi3 = np.asarray([ids for ids, _ in res["cuda"].itemsets if len(ids) == 3], dtype=np.int32)
+    table_bits = prep.table.bits
+    del res, prep, profile
+    torch.cuda.empty_cache()
+
+    # the planner on the card, against the numpy engine's plan
+    n_plan = 100_000
+    P = exposed_dataset(n=n_plan, m=6, seed=0)
+    t0 = time.perf_counter()
+    plan = plan_anonymization(P, 1, 3, config=KyivConfig(device=dev))
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    post = mine_masked(apply_plan(P, plan), KyivConfig(tau=1, kmax=3, device=dev))
+    if not plan.verified or (post is not None and post.itemsets):
+        fail(f"privacy: the plan is not verified (residual {plan.residual_qis})")
+    t0 = time.perf_counter()
+    host_plan = plan_anonymization(P, 1, 3, config=KyivConfig(engine="numpy"))
+    host_plan_s = time.perf_counter() - t0
+    if host_plan.initial_qis != plan.initial_qis:
+        fail(f"privacy: initial QIs {plan.initial_qis} on the card, {host_plan.initial_qis} on numpy")
+    print("phase privacy: ok " + json.dumps({
+        "dataset": f"exposed_dataset(n={PRIVACY_ROWS}, m=6, seed=0)", "tau": 1, "kmax": 3,
+        "W": int(table_bits.shape[1]), "items": int(table_bits.shape[0]), "prepare_s": prep_s,
+        "qis_by_size": {str(k): v for k, v in sorted(by_size.items())},
+        "records_at_risk": got["unique_records"], "coverage_launches": launches,
+        "report_peak_bytes": peak, **wall,
+        "plan": {"dataset": f"exposed_dataset(n={n_plan}, m=6, seed=0)", "wall_s": plan_s,
+                 "rounds": plan.rounds, "initial_qis": plan.initial_qis,
+                 "suppressions": plan.cells_suppressed,
+                 "generalized_columns": plan.generalized_columns, "verified": plan.verified,
+                 "numpy_wall_s": host_plan_s,
+                 "equal_to_numpy_plan": plan.as_dict(None) == host_plan.as_dict(None)},
+    }), flush=True)
+    return launches, table_bits, qi3
+
+
+def _coverage_inputs(t, n_words, m, k, seed, weights, device, pad=True):
+    """(t, n_words) random words, uploaded as the placement uploads them
+    (``pad``: word axis padded to a multiple of 4) or as they are, with an
+    empty row 0 and an all-ones row 1; (m, k) sets with repeated items and
+    sets on rows 0 and 1; weights in {0, 1, 2} or near 2**30 (sums overflow
+    int32)."""
+    from repro_torch.core.bitops import device_bits
+
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2**32, size=(t, n_words), dtype=np.uint32)
+    bits[0], bits[1] = 0, 0xFFFFFFFF
+    sets = rng.integers(0, t, size=(m, k)).astype(np.int32)
+    if m >= 3:
+        sets[0], sets[1] = 1, 0
+        sets[2, :] = sets[2, 0]
+    if weights == "overflow":
+        wt = (2**30 + rng.integers(-3, 4, size=m)).astype(np.int32)
+        wt[::3] = -(2**30) - 5
+    else:
+        wt = rng.integers(0, 3, size=m).astype(np.int32)
+    dbits = device_bits(bits, device) if pad else torch.from_numpy(bits.view(np.int32)).to(device)
+    return (bits, sets, wt), (dbits, torch.from_numpy(sets).to(device), torch.from_numpy(wt).to(device))
+
+
+def _coverage_bound(bits, sets, wt) -> dict:
+    """Least time for one batch: the distinct item rows read once, the
+    (32, W) output written once and the sets and weights read once, over
+    the memory rate; 2K operations per (live set, word) for the loads and
+    ANDs plus 96 per nonzero (live set, word) AND for the 32 bit planes,
+    over the 32-bit rate. Weight-0 sets need no work."""
+    m, k = sets.shape
+    w = bits.shape[1]
+    live = wt != 0
+    rows = int(torch.unique(sets[live]).numel())
+    nbytes = rows * w * 4 + 32 * w * 4 + m * (k + 1) * 4
+    idx = sets[live].long()
+    nonzero = 0
+    for chunk in idx.split(256):
+        mask = bits[chunk[:, 0]]
+        for j in range(1, k):
+            mask &= bits[chunk[:, j]]
+        nonzero += int((mask != 0).sum().item())
+    ops = int(live.sum().item()) * w * 2 * k + 96 * nonzero
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return {"bound_ms": max(bytes_s, ops_s) * 1e3, "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "bytes": nbytes, "bytes_ms": bytes_s * 1e3, "ops": ops, "ops_ms": ops_s * 1e3,
+            "rows_read": rows, "nonzero_words": nonzero}
+
+
+def _time_coverage(label, bits, sets, wt) -> dict:
+    from repro_torch.kernels.coverage import coverage_accumulate_indexed, coverage_accumulate_ref
+
+    got = coverage_accumulate_indexed(bits, sets, wt)
+    want = coverage_accumulate_ref(bits, sets, wt)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"{COVERAGE} {label}: differs from its plain version")
+    del got, want
+    kernel_ms = time_ms(lambda: coverage_accumulate_indexed(bits, sets, wt), 20)
+    plain_ms = time_ms(lambda: coverage_accumulate_ref(bits, sets, wt), 3)
+    bound = _coverage_bound(bits, sets, wt)
+    return {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "share": bound["bound_ms"] / kernel_ms,
+            "shape": {"t": int(bits.shape[0]), "W": int(bits.shape[1]), "M": int(sets.shape[0]),
+                      "K": int(sets.shape[1]), "live_sets": int((wt != 0).sum().item())},
+            **bound}
+
+
+def phase_coverage_kernel(device, table_bits, qi3):
+    """The coverage kernel against its plain version (and the host engine
+    on small inputs), bit for bit, then timed at the privacy path's batch:
+    the table's padded width, K = 3 and the bucket of a full batch (W =
+    15,628 and M = 8,192, the bucket of 4,294 sets, for 500,000 rows)."""
+    from repro_torch.core.bitops import device_bits, padded_words
+    from repro_torch.kernels.coverage import (
+        coverage_accumulate_host,
+        coverage_accumulate_indexed,
+        coverage_accumulate_ref,
+    )
+    from repro_torch.kernels.intersect import next_bucket
+
+    # the 1M-, 500k- and 100k-row tables' widths as uploaded (31,252,
+    # 15,628 and 3,128 words) and unpadded, and small widths also held
+    # against the host; M up to the 500k table's bucket
+    checks = err = 0
+    for n_words, pad in ((31_250, True), (15_625, True), (3_125, True), (31_250, False),
+                         (3_125, False), (1, False), (3, False), (33, False)):
+        for k in (1, 2, 3, 4):
+            for weights in ("small", "overflow"):
+                (hb, hs, hw), (bits, sets, wt) = _coverage_inputs(
+                    64, n_words, 8192, k, seed=n_words + k, weights=weights, device=device, pad=pad)
+                for m in (0, 1, 7, 4096, 8192):
+                    s, x = sets[:m].contiguous(), wt[:m].contiguous()
+                    got = coverage_accumulate_indexed(bits, s, x)
+                    want = coverage_accumulate_ref(bits, s, x)
+                    torch.cuda.synchronize()
+                    e = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
+                    if n_words <= 33:
+                        host = coverage_accumulate_host(hb, hs[:m], hw[:m])
+                        e = max(e, int(np.abs(got[:, :n_words].cpu().numpy().astype(np.int64)
+                                              - host.astype(np.int64)).max()))
+                    if e:
+                        fail(f"{COVERAGE} W={bits.shape[1]} K={k} M={m} weights={weights}: "
+                             f"max_abs_err={e}")
+                    err, checks = max(err, e), checks + 1
+                del bits, sets, wt
+    torch.cuda.empty_cache()
+
+    n_words = table_bits.shape[1]
+    w_pad = padded_words(n_words)
+    cap = max(256, (1 << 26) // n_words)  # CoverageEngine's batch cap at this W
+    bucket = next_bucket(cap)
+    if len(qi3) < cap:
+        fail(f"coverage timing: only {len(qi3)} size-3 quasi-identifiers, need {cap}")
+    chunk = np.pad(qi3[:cap], ((0, bucket - cap), (0, 0)), mode="edge")
+    wchunk = np.pad(np.ones(cap, dtype=np.int32), (0, bucket - cap))
+    bits = device_bits(table_bits, device)
+    sparse = _time_coverage("sparse", bits, torch.from_numpy(chunk).to(device),
+                            torch.from_numpy(wchunk).to(device))
+    del bits
+    torch.cuda.empty_cache()
+    _, (bits, sets, _) = _coverage_inputs(512, n_words, bucket, 3, seed=7, weights="small",
+                                          device=device)
+    dense = _time_coverage("dense", bits, sets,
+                           torch.ones(sets.shape[0], dtype=torch.int32, device=device))
+    if bits.shape[1] != w_pad:
+        fail(f"coverage timing: W={bits.shape[1]}, expected {w_pad}")
+    del bits, sets
+    torch.cuda.empty_cache()
+    print("phase coverage-kernel: ok " + json.dumps({
+        "checks": checks, "max_abs_err": err, "batch_cap": cap,
+        "sparse": {"inputs": f"the first {cap} size-3 QIs of the exposed table, "
+                             f"padded to {bucket} with weight 0", **sparse},
+        "dense": {"inputs": "512 random rows, random sets, weight 1", **dense},
+    }), flush=True)
+    return {"max_abs_err": err, "sparse": sparse, "dense": dense}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -543,6 +797,10 @@ def main() -> None:
     launches.update(phase_gathered(device, poker, connect))
     del poker, connect
     phase_checkpoint(device)
+    cov_launches, table_bits, qi3 = phase_privacy(device)
+    launches[COVERAGE] = cov_launches
+    timing[COVERAGE] = phase_coverage_kernel(device, table_bits, qi3)
+    del table_bits, qi3
 
     kernels = []
     for name, (replaces, _, _) in KERNELS.items():
@@ -554,6 +812,16 @@ def main() -> None:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             **({"gather_ms": r["gather_ms"]} if "gather_ms" in r else {}),
         })
+    r = timing[COVERAGE]
+    kernels.append({
+        "name": COVERAGE, "route": "cuda", "source": COVERAGE_SOURCE, "replaces": COVERAGE_REPLACES,
+        "launches": launches[COVERAGE], "max_abs_err": r["max_abs_err"],
+        "ms": r["sparse"]["kernel_ms"], "kernel_ms": r["sparse"]["kernel_ms"],
+        "plain_ms": r["sparse"]["plain_ms"], "bound_ms": r["sparse"]["bound_ms"],
+        "bound_by": r["sparse"]["bound_by"], "library_ms": None,
+        "dense_ms": r["dense"]["kernel_ms"], "dense_plain_ms": r["dense"]["plain_ms"],
+        "dense_bound_ms": r["dense"]["bound_ms"], "dense_bound_by": r["dense"]["bound_by"],
+    })
     print(f"total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

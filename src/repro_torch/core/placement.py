@@ -11,7 +11,10 @@ the level loop (``core.frontier``):
    how candidates are generated, masked and partitioned
    (:meth:`frontier_dispatch`, and on a device :meth:`frontier_mask` and
    :meth:`frontier_partition`);
-4. **retirement** — dropping what :meth:`prepare` uploaded (:meth:`release`).
+4. **retirement** — dropping what :meth:`prepare` uploaded (:meth:`release`);
+5. **coverage** — the item bitsets of a record-risk query made resident once
+   (:meth:`prepare_coverage`) and one padded itemset batch accumulated
+   (:meth:`coverage_dispatch`, ``kernels.coverage``).
 
 Implementations:
 
@@ -33,6 +36,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels.coverage import ops as _cov
+from ..kernels.coverage.ref import coverage_accumulate_host
 from ..kernels.frontier import frontier as _f
 from ..kernels.frontier import ops as _fops
 from ..kernels.intersect import ops as _ops
@@ -61,8 +66,8 @@ _fault_hook = None
 
 def set_fault_hook(hook):
     """Install ``hook(site: str)`` ahead of every device dispatch (sites:
-    "dispatch", "frontier"). Returns the previous hook so callers can
-    restore it."""
+    "dispatch", "frontier", "coverage"). Returns the previous hook so
+    callers can restore it."""
     global _fault_hook
     prev, _fault_hook = _fault_hook, hook
     return prev
@@ -110,6 +115,15 @@ class HostPlacement:
             minp = np.minimum(pc[padded_pairs[:, 0]], pc[padded_pairs[:, 1]])
             classes = _ops.classify_counts_host(counts, minp, tau)
         return (child if write_children else None), counts, classes
+
+    # -- coverage -------------------------------------------------------------
+
+    def prepare_coverage(self, bits):
+        return np.ascontiguousarray(np.asarray(bits, dtype=np.uint32))
+
+    def coverage_dispatch(self, state, padded_sets, padded_weights):
+        _DISPATCHES.inc(site="coverage", kind="host")
+        return coverage_accumulate_host(state, padded_sets, padded_weights)
 
     # -- frontier (the numpy reference path) --------------------------------
 
@@ -192,6 +206,20 @@ class DevicePlacement:
             indexed=self.indexed, donate=self.donate,
         )
         return fn(state["bits"], self._pairs(padded_pairs), state["pc"], state["tau"])
+
+    # -- coverage -------------------------------------------------------------
+
+    def prepare_coverage(self, bits):
+        """Upload the item bitsets once (int32 words, word axis padded)."""
+        return device_bits(bits, self.device)
+
+    def coverage_dispatch(self, state, padded_sets, padded_weights):
+        """acc (32, padded W) int32 on the device for one padded batch."""
+        _guard("coverage")
+        fn = _cov.build_coverage_dispatch(self.engine)
+        sets = torch.from_numpy(np.ascontiguousarray(padded_sets, dtype=np.int32)).to(self.device)
+        weights = torch.from_numpy(np.ascontiguousarray(padded_weights, dtype=np.int32)).to(self.device)
+        return fn(state, sets, weights)
 
     # -- frontier -----------------------------------------------------------
 

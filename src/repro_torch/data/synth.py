@@ -17,11 +17,52 @@ import numpy as np
 
 __all__ = [
     "randomized_dataset",
+    "exposed_dataset",
     "connect_like",
+    "pumsb_like",
     "poker_like",
     "uscensus_like",
     "DATASETS",
 ]
+
+
+def exposed_dataset(
+    n: int,
+    m: int = 6,
+    base_domain: int = 5,
+    exposed_frac: float = 0.1,
+    pair_domains: tuple[int, int] = (120, 127),
+    seed: int = 0,
+) -> np.ndarray:
+    """Frequent background with planted rare structure — the privacy-risk
+    stress shape (§1's AOL exposure, controllable at any row count).
+
+    A ``base_domain``-ary random table (every item frequent) in which an
+    ``exposed_frac`` fraction of rows is made re-identifiable:
+
+    * half carry a **unique value** in column 0 — singleton quasi-identifiers;
+    * half carry an engineered value **pair** in columns 1-2: values cycle
+      through coprime domains, so each *value* occurs ~``e / domain`` times
+      (frequent, for τ below that) while each *combination* occurs at most
+      ``ceil(e / (P * Q))`` times — minimal infrequent pairs.
+
+    The number of planted QIs scales linearly with n and mining stays cheap,
+    so record-coverage and planner runs can use paper-scale row counts.
+    """
+    rng = np.random.default_rng(seed)
+    out = rng.integers(0, base_domain, size=(n, m)).astype(np.int64)
+    e = int(n * exposed_frac)
+    if e == 0 or m < 3:
+        return out
+    rows = rng.choice(n, size=e, replace=False)
+    half = e // 2
+    out[rows[:half], 0] = 10_000 + np.arange(half)
+    pair_rows = rows[half:]
+    k = len(pair_rows)
+    p, q = pair_domains
+    out[pair_rows, 1] = 10_000 + (np.arange(k) % p)
+    out[pair_rows, 2] = 10_000 + (np.arange(k) % q)
+    return out
 
 
 def randomized_dataset(
@@ -54,6 +95,20 @@ def connect_like(n: int = 67_557, m: int = 43, seed: int = 0) -> np.ndarray:
         rem = 1.0 - p_blank
         cols.append(rng.choice(3, size=n, p=[p_blank, rem * 0.5, rem * 0.5]))
     cols.append(rng.choice(3, size=n, p=[0.65, 0.25, 0.10]))  # win/lose/draw
+    return np.stack(cols, axis=1).astype(np.int64)
+
+
+def pumsb_like(n: int = 49_046, m: int = 74, seed: int = 0) -> np.ndarray:
+    """PUMS census analogue: 74 columns with Zipf-ish marginals and domain
+    sizes drawn to land near the paper's ~1,958 items (~26 values/column)."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    for _ in range(m):
+        d = int(rng.integers(4, 50))
+        # Zipf-like marginal over d values
+        w = 1.0 / np.arange(1, d + 1) ** 1.1
+        w /= w.sum()
+        cols.append(rng.choice(d, size=n, p=w))
     return np.stack(cols, axis=1).astype(np.int64)
 
 
@@ -91,6 +146,7 @@ def uscensus_like(n: int = 200_000, m: int = 68, seed: int = 0) -> np.ndarray:
 DATASETS = {
     "randomized": randomized_dataset,
     "connect": connect_like,
+    "pumsb": pumsb_like,
     "poker": poker_like,
     "uscensus": uscensus_like,
 }

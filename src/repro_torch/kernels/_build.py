@@ -23,7 +23,10 @@ __all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCES", "build", "load", "nvcc_path"]
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
-SOURCES = {"intersect": _PKG / "intersect" / "csrc" / "intersect.cu"}
+SOURCES = {
+    "intersect": _PKG / "intersect" / "csrc" / "intersect.cu",
+    "coverage": _PKG / "coverage" / "csrc" / "coverage.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

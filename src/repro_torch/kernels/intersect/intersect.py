@@ -94,7 +94,7 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
         return True
     if device.type == "cpu":
         return False
-    raise ValueError(f"no intersect kernel for device {device}")
+    raise ValueError(f"no CUDA kernel for device {device}")
 
 
 def _check(bits: torch.Tensor, pairs: torch.Tensor, parent_counts: torch.Tensor | None) -> None:
