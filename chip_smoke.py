@@ -43,7 +43,26 @@ machine: the kernels build from the sources in the checkout into
    overflow int32 (320 checks), and against the numpy host engine on small
    inputs, then timed at the privacy path's batch shape (W = 15,628,
    M = 8,192, K = 3) on real quasi-identifiers of phase 7 (sparse) and on
-   random rows (dense).
+   random rows (dense);
+9. tiled: the group-tiled count kernel against its plain version on the
+   card, bit for bit, over block sizes, widths and group layouts (T from 1
+   to a few thousand block pairs), then its path at full width: the level-3
+   frontier of phase 3's table (66,810 rows in 3,066 prefix groups), from
+   a second mine of phase 3's ``prep`` with an ``on_level_end`` hook, laid
+   out group-aligned through ``build_group_tiles`` (bm = 8), counted by
+   the kernel in one launch and mapped back by ``counts_from_tiles``; the
+   counts of all within-group pairs must equal the pairwise count kernel's
+   (``intersect_count_indexed``) and the plain version's, and the kernel is
+   timed beside the pairwise kernel over the same pairs in the level
+   pipeline's batches of 16,384.
+
+Each kernel's ``bound_ms`` is the larger of its bytes over the memory rate,
+the fewest 32-bit operations its function needs over the 32-bit rate and
+the fewest popcounts over their own issue rate (16 per clock per SM at
+compute capability 9.0, times the SMs and the SM clock that ``nvidia-smi``
+reports). A sum of popcounts of ANDs over words needs an AND per word and
+a carry-save (Harley-Seal) sum of two logic operations per word, which
+leaves one popcount per 16 words.
 
 It prints a JSON line of per-kernel numbers and, last, the JSON status line.
 Any mismatch, build failure or missing card exits non-zero before that line.
@@ -85,7 +104,19 @@ KERNELS = {
 DONATING = "intersect_classify_write_gathered_donating"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores (data sheet)
-OPS_PER_WORD = 3  # AND, popcount, add per word of each pair
+# The fewest operations a sum of popcounts of ANDs over words needs: the
+# AND of each word, then a carry-save (Harley-Seal) tree of two 3-input
+# logic operations per word that leaves one popcount per HARLEY_SEAL_WORDS
+OPS_PER_WORD = 3  # AND and two carry-save operations per word of each pair
+HARLEY_SEAL_WORDS = 16
+# 32-bit population counts issued per clock per SM at compute capability
+# 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput table)
+POPC_PER_CLOCK_PER_SM = 16
+TILED = "intersect_count_tiled"
+TILED_SOURCE = "src/repro_torch/kernels/intersect/csrc/tiled.cu"
+TILED_REPLACES = "src/repro/kernels/intersect/tiled.py:57"
+TILED_BM = 8  # the reference's default block_rows
+PAIRWISE_BATCH = 16_384  # the level pipeline's bucket at the Poker-hand width
 
 
 def fail(msg: str) -> None:
@@ -98,10 +129,10 @@ def stat_tuple(s):
             s.intersections, s.emitted, s.skipped_absent_uniform, s.stored)
 
 
-def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn()`` over ``iters`` runs, after two warm-up
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn()`` over ``iters`` runs, after ``warmup``
     runs, by CUDA events."""
-    for _ in range(2):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -132,9 +163,36 @@ def phase_device():
         for line in _build.BUILD_LOGS[name].splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print(f"  ptxas[{name}] {line.strip()}")
+    popc_per_s = _popc_per_s()
     print(f"phase device: ok card={card!r} torch={torch.__version__} cuda={torch.version.cuda} "
-          f"build_s={build_s:.1f}", flush=True)
-    return card
+          f"build_s={build_s:.1f} popc_per_s={popc_per_s:.4g}", flush=True)
+    return popc_per_s
+
+
+def _popc_per_s() -> float:
+    """32-bit popcounts per second: the issue rate per SM times the SMs and
+    the card's maximum SM clock as ``nvidia-smi`` reports it."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    try:
+        mhz = float(smi.stdout.strip().splitlines()[0])
+    except (IndexError, ValueError):
+        fail(f"nvidia-smi gave no SM clock: {smi.stdout!r} {smi.stderr!r}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"  popcount rate: {POPC_PER_CLOCK_PER_SM}/clock/SM x {sms} SMs x {mhz:.0f} MHz", flush=True)
+    return POPC_PER_CLOCK_PER_SM * sms * mhz * 1e6
+
+
+def _bound(nbytes: float, ops: float, popcounts: float, popc_per_s: float) -> dict:
+    """The least time of a function: the larger of its bytes over the memory
+    rate, its other 32-bit operations over the 32-bit rate and its popcounts
+    over their own rate, each limit printed."""
+    bytes_s, ops_s, popc_s = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S, popcounts / popc_per_s
+    return {"bound_ms": max(bytes_s, ops_s, popc_s) * 1e3,
+            "bound_by": "bytes" if bytes_s >= max(ops_s, popc_s) else "operations",
+            "bytes_ms": bytes_s * 1e3, "ops_ms": ops_s * 1e3, "popc_ms": popc_s * 1e3}
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -246,7 +304,7 @@ def _check_donating(bits, pairs, pc, tau) -> int:
     return _max_abs_err(got, want)
 
 
-def _bound_ms(name, bits, pairs) -> tuple[float, str]:
+def _bound_ms(name, bits, pairs, popc_per_s) -> dict:
     _, write, classify = KERNELS[name]
     m, w = pairs.shape[0], bits.shape[1]
     if _gathered(name):
@@ -257,12 +315,10 @@ def _bound_ms(name, bits, pairs) -> tuple[float, str]:
         unique_rows = int(torch.unique(pairs).numel())
         read = unique_rows * w * 4 + m * 8 + (unique_rows * 4 if classify else 0)
     written = (m * w * 4 if write else 0) + m * 4 + (m * 4 if classify else 0)
-    bytes_s = (read + written) / HBM_BYTES_PER_S
-    ops_s = OPS_PER_WORD * m * w / INT32_OPS_PER_S
-    return max(bytes_s, ops_s) * 1e3, ("bytes" if bytes_s >= ops_s else "operations")
+    return _bound(read + written, OPS_PER_WORD * m * w, m * w / HARLEY_SEAL_WORDS, popc_per_s)
 
 
-def phase_kernels(device, n_words: int, batch_bucket: int):
+def phase_kernels(device, n_words: int, batch_bucket: int, popc_per_s: float):
     from repro_torch.core.bitops import padded_words
 
     w_pad = padded_words(n_words)
@@ -311,15 +367,15 @@ def phase_kernels(device, n_words: int, batch_bucket: int):
         # bytes move on every launch
         ms = time_ms(kern, 20)
         plain_ms = time_ms(plain, 5)
-        bound_ms, bound_by = _bound_ms(name, bits, pairs)
         rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      **_bound_ms(name, bits, pairs, popc_per_s),
                       "t": parents[write], "W": w_pad, "M": batch_bucket, **extra}
         del bits, pairs, pc, kern, plain
         torch.cuda.empty_cache()
     print("phase kernels: ok " + json.dumps({"checks": checks, "kernels": [
         {"name": n, "kernel_ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "share": r["bound_ms"] / r["ms"],
+         "bytes_ms": r["bytes_ms"], "ops_ms": r["ops_ms"], "popc_ms": r["popc_ms"],
          **({"gather_ms": r["gather_ms"]} if "gather_ms" in r else {}),
          "shape": {"t": r["t"], "W": r["W"], "M": r["M"]}}
         for n, r in rows.items()]}), flush=True)
@@ -773,6 +829,185 @@ def phase_coverage_kernel(device, table_bits, qi3):
     return {"max_abs_err": err, "sparse": sparse, "dense": dense}
 
 
+# -- phase 9 -----------------------------------------------------------------
+
+
+def _tiled_case(sizes, bm: int, w: int, seed: int, device):
+    """Group-aligned rows of the prefix groups ``sizes`` (random words, an
+    all-ones row, an empty row and duplicate rows; zero padding rows) and
+    their block pairs, on ``device``."""
+    from repro_torch.kernels.intersect import build_group_tiles
+
+    row_map, ti, tj = build_group_tiles(np.asarray(sizes, dtype=np.int64), bm)
+    rng = np.random.default_rng(seed)
+    t = int(np.sum(sizes))
+    bits = rng.integers(0, 2**32, size=(t, w), dtype=np.uint32)
+    if t >= 4:
+        bits[0], bits[1], bits[3] = 0xFFFFFFFF, 0, bits[2]
+    pad = np.zeros((len(row_map), w), dtype=np.uint32)
+    pad[row_map >= 0] = bits[row_map[row_map >= 0]]
+    as_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return as_dev(pad.view(np.int32)), as_dev(ti), as_dev(tj)
+
+
+def _tiled_sweep(device) -> int:
+    """The kernel against its plain version, bit for bit: block sizes 1, 2,
+    3, 4, 8 and 16 at widths with 32-bit and 128-bit loads, in three
+    group layouts (edge: empty, one-row, one-block and ragged groups;
+    single: one block pair, a CTA per sub-block over all words; many:
+    hundreds of random groups), each on its first block pair and on all of
+    them; then block indices out of range, which must give zero tiles."""
+    from repro_torch.kernels.intersect import intersect_count_tiled, intersect_count_tiled_ref
+
+    checks = 0
+    for bm in (1, 2, 3, 4, 8, 16):
+        for w in (1, 3, 5, 33, 3_128, 31_252):
+            rng = np.random.default_rng(bm * 100_003 + w)
+            n_groups = 600 if w <= 33 else 40 if w <= 3_128 else 6
+            layouts = {"edge": [0, 1, 2, bm, bm + 1, 0, 3 * bm - 1], "single": [bm],
+                       "many": rng.integers(0, 3 * bm + 2, size=n_groups)}
+            for layout, sizes in layouts.items():
+                bits, ti, tj = _tiled_case(sizes, bm, w, seed=checks, device=device)
+                for n in sorted({1, ti.shape[0]}):
+                    a, b = ti[:n].contiguous(), tj[:n].contiguous()
+                    got = intersect_count_tiled(bits, a, b, block_rows=bm, block_words=w)
+                    want = intersect_count_tiled_ref(bits, a, b, bm)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        fail(f"{TILED} bm={bm} W={w} {layout} T={n}: differs from its plain version "
+                             f"(max_abs_err={_max_abs_err((got,), (want,))})")
+                    checks += 1
+    bits, _, _ = _tiled_case([16], 8, 40, seed=1, device=device)
+    ti = torch.tensor([0, 2, -1, 1, 0, 1 << 30], dtype=torch.int32, device=device)
+    tj = torch.tensor([1, 0, 0, 1, 7, 0], dtype=torch.int32, device=device)
+    got = intersect_count_tiled(bits, ti, tj, block_rows=8, block_words=40)
+    if not torch.equal(got, intersect_count_tiled_ref(bits, ti, tj, 8)) or got[[1, 2, 4, 5]].any():
+        fail(f"{TILED}: block indices out of range do not give zero tiles")
+    return checks + 1
+
+
+def _level3_frontier(prep, device):
+    """Level 3 of phase 3's mine (tau=1, kmax=4), as ``on_level_end`` hands
+    it over before level 4 (host words, padding stripped), and that mine's
+    level-4 candidates."""
+    from repro_torch.core import KyivConfig
+    from repro_torch.core.kyiv import mine_preprocessed
+
+    states = {}
+    res = mine_preprocessed(prep, KyivConfig(tau=1, kmax=4, device=str(device)),
+                            on_level_end=lambda k, st: states.setdefault(st.next_k, st.level))
+    return states[4], next(s.candidates for s in res.stats if s.k == 4)
+
+
+def phase_tiled(device, prep, popc_per_s: float) -> dict:
+    """The tiled count's sweep, then its path at full width on the Poker-hand
+    level-3 frontier: the counts of all within-group pairs against the
+    pairwise count kernel and the plain version; timed beside both."""
+    from repro_torch.core.bitops import padded_words
+    from repro_torch.core.prefix import prefix_group_sizes
+    from repro_torch.kernels.intersect import (
+        build_group_tiles,
+        counts_from_tiles,
+        intersect_count_indexed,
+        intersect_count_tiled,
+        intersect_count_tiled_ref,
+        locality_order,
+    )
+    from repro_torch.kernels.intersect import tiled as T
+
+    checks = _tiled_sweep(device)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    level, candidates = _level3_frontier(prep, device)
+    mine_s = time.perf_counter() - t0
+    sizes = prefix_group_sizes(level.itemsets)
+    row_map, ti, tj = build_group_tiles(sizes, TILED_BM)
+    pos = np.flatnonzero(row_map >= 0)  # padded row of each frontier row
+    if not np.array_equal(row_map[pos], np.arange(level.t)):
+        fail(f"{TILED}: build_group_tiles does not keep the frontier's row order")
+    # upload group-aligned at the device width: zero padding rows and words
+    n_words = level.bits.shape[1]
+    w = padded_words(n_words)
+    t0 = time.perf_counter()
+    bits = torch.zeros((len(row_map), w), dtype=torch.int32, device=device)
+    for s in range(0, level.t, 4096):
+        rows = torch.from_numpy(np.ascontiguousarray(level.bits[s : s + 4096]).view(np.int32))
+        bits[torch.from_numpy(pos[s : s + 4096]).to(device), :n_words] = rows.to(device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    t_level = level.t
+    del level
+    ti_d, tj_d = torch.from_numpy(ti).to(device), torch.from_numpy(tj).to(device)
+    run = lambda: intersect_count_tiled(bits, ti_d, tj_d, block_rows=TILED_BM, block_words=w)
+
+    # the path: counted from 0 just before it, read just after
+    T.reset_launches()
+    t0 = time.perf_counter()
+    cnt = run()
+    torch.cuda.synchronize()
+    path_kernel_s = time.perf_counter() - t0
+    launches = T.LAUNCHES[TILED]
+    pairs, counts = counts_from_tiles(cnt.cpu().numpy(), ti, tj, row_map, TILED_BM)
+    path_s = time.perf_counter() - t0
+    if launches == 0:
+        fail(f"{TILED}: the tiled path never launched the kernel")
+    real_pairs = int((sizes * (sizes - 1) // 2).sum())
+    if len(pairs) != real_pairs:
+        fail(f"{TILED}: {len(pairs)} pairs from the tiles, {real_pairs} within-group pairs")
+
+    # the same pairs through the pairwise kernel, in locality order and the
+    # level pipeline's batches, on the same group-aligned rows
+    order, _ = locality_order(pairs)
+    if order is not None:
+        pairs, counts = pairs[order], counts[order]
+    pw = torch.from_numpy(pos[pairs].astype(np.int32)).to(device)
+    batches = [pw[s : s + PAIRWISE_BATCH].contiguous() for s in range(0, len(pw), PAIRWISE_BATCH)]
+    pairwise = torch.cat([intersect_count_indexed(bits, b) for b in batches])
+    if not np.array_equal(pairwise.cpu().numpy().astype(np.int64), counts):
+        fail(f"{TILED}: tiled counts differ from intersect_count_indexed's")
+    want = intersect_count_tiled_ref(bits, ti_d, tj_d, TILED_BM)
+    err = _max_abs_err((cnt,), (want,))
+    if err:
+        fail(f"{TILED} at the Poker-hand level: max_abs_err={err} against its plain version")
+    del cnt, want, pairwise
+
+    kernel_ms = time_ms(run, 10)
+    plain_ms = time_ms(lambda: intersect_count_tiled_ref(bits, ti_d, tj_d, TILED_BM), 1, warmup=0)
+    pairwise_ms = time_ms(lambda: [intersect_count_indexed(bits, b) for b in batches], 5)
+    n_tiles, t_pad = len(ti), len(row_map)
+    entries = n_tiles * TILED_BM * TILED_BM
+    # the group-aligned rows and the block indices read once, the tiles
+    # written once; per entry and word an AND and a carry-save sum, and a
+    # popcount per HARLEY_SEAL_WORDS words
+    bound = _bound(t_pad * w * 4 + n_tiles * 8 + entries * 4, OPS_PER_WORD * entries * w,
+                   entries * w / HARLEY_SEAL_WORDS, popc_per_s)
+    # the limits of the two kernels' own design, one __popc per entry (pair)
+    # and word: not the function's bound
+    kernel_popc_ms = entries * w / popc_per_s * 1e3
+    pairwise_popc_ms = len(pairs) * w / popc_per_s * 1e3
+    n_batches = len(batches)
+    del bits, ti_d, tj_d, pw, batches
+    torch.cuda.empty_cache()
+    out = {
+        "checks": checks, "max_abs_err": err, "launches": launches,
+        "frontier": {"dataset": "poker_like(n=1000000, m=10, seed=0)", "tau": 1, "kmax": 4,
+                     "level": 3, "rows": t_level, "groups": len(sizes),
+                     "largest_group": int(sizes.max()), "W": w, "mine_s": mine_s,
+                     "upload_s": upload_s},
+        "bm": TILED_BM, "T": n_tiles, "padded_rows": t_pad, "entries": entries,
+        "real_pairs": real_pairs, "level4_candidates": candidates,
+        "path_kernel_s": path_kernel_s, "path_s": path_s,
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "pairwise_ms": pairwise_ms,
+        "pairwise_launches": n_batches,
+        "kernel_popc_ms": kernel_popc_ms, "pairwise_popc_ms": pairwise_popc_ms,
+        "share": bound["bound_ms"] / kernel_ms,
+        "pairwise_over_tiled": pairwise_ms / kernel_ms, **bound,
+    }
+    print("phase tiled: ok " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -784,23 +1019,26 @@ def main() -> None:
     torch.cuda.set_device(device)
     t_start = time.perf_counter()
 
-    phase_device()
+    popc_per_s = phase_device()
     n_words = (1_000_000 + 31) // 32  # the Poker-hand table's bitset width
     batch_cap = max(4096, (1 << 28) // n_words)  # core.frontier.mine_levels' batch cap
     from repro_torch.kernels.intersect import next_bucket
 
-    timing = phase_kernels(device, n_words, next_bucket(batch_cap))
+    timing = phase_kernels(device, n_words, next_bucket(batch_cap), popc_per_s)
     launches, *poker = phase_main(device)
     connect_launches, *connect = phase_host_classified(device)
     launches.update({k: v for k, v in connect_launches.items()
                      if k in ("intersect_write_indexed", "intersect_count_indexed")})
     launches.update(phase_gathered(device, poker, connect))
+    poker_prep = poker[0]
     del poker, connect
     phase_checkpoint(device)
     cov_launches, table_bits, qi3 = phase_privacy(device)
     launches[COVERAGE] = cov_launches
     timing[COVERAGE] = phase_coverage_kernel(device, table_bits, qi3)
     del table_bits, qi3
+    tiled = phase_tiled(device, poker_prep, popc_per_s)
+    del poker_prep
 
     kernels = []
     for name, (replaces, _, _) in KERNELS.items():
@@ -821,6 +1059,16 @@ def main() -> None:
         "bound_by": r["sparse"]["bound_by"], "library_ms": None,
         "dense_ms": r["dense"]["kernel_ms"], "dense_plain_ms": r["dense"]["plain_ms"],
         "dense_bound_ms": r["dense"]["bound_ms"], "dense_bound_by": r["dense"]["bound_by"],
+    })
+    # launched by its own path only, as in the reference: no mine calls it.
+    # No single PyTorch call counts bit intersections of packed words, so
+    # library_ms is null; pairwise_ms is row 4's kernel over the same pairs
+    kernels.append({
+        "name": TILED, "route": "cuda", "source": TILED_SOURCE, "replaces": TILED_REPLACES,
+        "launches": tiled["launches"], "max_abs_err": tiled["max_abs_err"],
+        "ms": tiled["kernel_ms"], "kernel_ms": tiled["kernel_ms"], "plain_ms": tiled["plain_ms"],
+        "bound_ms": tiled["bound_ms"], "bound_by": tiled["bound_by"], "library_ms": None,
+        "pairwise_ms": tiled["pairwise_ms"],
     })
     print(f"total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

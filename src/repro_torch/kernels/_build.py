@@ -26,6 +26,7 @@ BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
 SOURCES = {
     "intersect": _PKG / "intersect" / "csrc" / "intersect.cu",
     "coverage": _PKG / "coverage" / "csrc" / "coverage.cu",
+    "tiled": _PKG / "intersect" / "csrc" / "tiled.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -10,13 +10,15 @@ Two families, as in the kernels: the *indexed* functions take the parent
 table ``bits`` and ``(M, 2)`` pair indices; the *gathered* ones take the two
 operand rows already gathered, ``a`` and ``b`` of shape ``(M, W)``, and for
 the classify variants the per-pair ``minp = min(pc[i], pc[j])``.
+The tiled function takes ``(T,)`` *block* indices into ``bits`` cut in
+blocks of ``bm`` rows and counts every row pair of each block pair.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ...core.bitops import popcount_rows_torch
+from ...core.bitops import popcount32, popcount_rows_torch
 
 __all__ = [
     "popcount_rows_ref",
@@ -30,6 +32,7 @@ __all__ = [
     "intersect_classify_ref",
     "intersect_classify_count_ref",
     "min_parent_ref",
+    "intersect_count_tiled_ref",
     "CLASS_SKIP",
     "CLASS_EMIT",
     "CLASS_STORE",
@@ -128,3 +131,37 @@ def intersect_classify_count_ref(
     """Fused count-only (k = k_max): counts + class codes, no child bitset."""
     counts = intersect_count_ref(bits, pairs)
     return counts, classify_counts_ref(counts, min_parent_ref(parent_counts, pairs), tau)
+
+
+# words of the (chunk, bm, bm, W) AND the tiled plain version holds at once
+# (each of popcount32's temporaries is this size)
+_TILED_CHUNK_WORDS = 1 << 25
+
+
+def intersect_count_tiled_ref(
+    bits: torch.Tensor, tile_i: torch.Tensor, tile_j: torch.Tensor, bm: int
+) -> torch.Tensor:
+    """(T, bm, bm) int32 popcount cross-matrices of block pairs.
+
+    ``out[s, a, b] = popcount(bits[tile_i[s]*bm + a] & bits[tile_j[s]*bm + b])``
+    over all W words, for ``(t, W)`` int32 ``bits`` cut in ``t // bm`` blocks
+    of ``bm`` rows. A block index outside ``[0, t // bm)`` gives a zero
+    matrix, as the kernel does. Chunked over block pairs so that the
+    ``(chunk, bm, bm, W)`` AND stays bounded."""
+    t, w = bits.shape
+    n_tiles = tile_i.shape[0]
+    out = torch.zeros((n_tiles, bm, bm), dtype=torch.int32, device=bits.device)
+    n_blocks = t // bm
+    if n_tiles == 0 or w == 0 or n_blocks == 0:
+        return out
+    ti, tj = tile_i.long(), tile_j.long()
+    valid = (ti >= 0) & (ti < n_blocks) & (tj >= 0) & (tj < n_blocks)
+    rows = torch.arange(bm, device=bits.device)
+    chunk = max(1, _TILED_CHUNK_WORDS // (bm * bm * w))
+    for s in range(0, n_tiles, chunk):
+        v = valid[s : s + chunk]
+        a = bits[torch.where(v, ti[s : s + chunk], 0)[:, None] * bm + rows]  # (c, bm, W)
+        b = bits[torch.where(v, tj[s : s + chunk], 0)[:, None] * bm + rows]
+        cnt = popcount32(a[:, :, None, :] & b[:, None, :, :]).sum(dim=-1, dtype=torch.int32)
+        out[s : s + chunk] = torch.where(v[:, None, None], cnt, 0)
+    return out
