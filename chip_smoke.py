@@ -8,7 +8,9 @@ machine: the kernels build from the sources in the checkout into
 ``build/kernels/``. Phases, one line each (and a few detail lines):
 
 1. device: the card's name and power limit (``nvidia-smi``), then the kernel
-   build with its register and shared-memory use (``-Xptxas -v``);
+   build with its register and shared-memory use (``-Xptxas -v``), the rate
+   probes' instruction counts (``cuobjdump -sass``) and the card's measured
+   logic, popcount and b1 ``mma`` rates beside the documented ones;
 2. kernels: every CUDA kernel against its plain PyTorch version on the card,
    bit for bit, at the main path's shapes and at edge cases, then timed with
    CUDA events beside its memory bound and its plain version (the gathered
@@ -35,15 +37,21 @@ machine: the kernels build from the sources in the checkout into
    kmax=3; cut from 1,000,000 rows, whose numpy-engine mine alone takes
    over a minute of host time, PERF.md) mined with ``engine="cuda"``,
    ``"torch"`` and ``"numpy"`` (all equal), its quasi-identifier report and
-   record-risk profile through the coverage kernel (equal to the torch and
-   host placements' profiles; the kernel must have launched), then a
-   verified anonymization plan of the 100,000-row table on the card;
-8. coverage-kernel: the coverage kernel against its plain version on the
-   card, bit for bit, over widths, set sizes, batch sizes and weights that
-   overflow int32 (320 checks), and against the numpy host engine on small
-   inputs, then timed at the privacy path's batch shape (W = 15,628,
-   M = 8,192, K = 3) on real quasi-identifiers of phase 7 (sparse) and on
-   random rows (dense);
+   record-risk profile through the coverage kernels (equal to the torch and
+   host placements' profiles; its sparse QIs take the anchored kernel),
+   the risk profile of phase 3's mine (QIs of frequent items: the scanning
+   kernel; equal to the host placement's), both kernels must have
+   launched; then a verified anonymization plan of the 100,000-row table
+   on the card;
+8. coverage-kernel: both coverage kernels (scanning and anchored) against
+   the plain versions on the card, bit for bit, over widths, set sizes,
+   batch sizes, sparse and sign-bit rows and weights that overflow int32
+   (640 checks), and against the numpy host engine on small inputs; the
+   index of the 500k table built and timed; then timed at the privacy
+   path's batch shape (W = 15,628, M = 8,192, K = 3) on real
+   quasi-identifiers of phase 7 (sparse: both kernels) and on random rows
+   (dense: the scanning kernel), by CUDA events over back-to-back calls
+   and over the replay of a CUDA graph of 20 calls (the device alone);
 9. tiled: the group-tiled count kernel against its plain version on the
    card, bit for bit, over block sizes, widths and group layouts (T from 1
    to a few thousand block pairs), then its path at full width: the level-3
@@ -56,13 +64,22 @@ machine: the kernels build from the sources in the checkout into
    timed beside the pairwise kernel over the same pairs in the level
    pipeline's batches of 16,384.
 
-Each kernel's ``bound_ms`` is the larger of its bytes over the memory rate,
-the fewest 32-bit operations its function needs over the 32-bit rate and
-the fewest popcounts over their own issue rate (16 per clock per SM at
-compute capability 9.0, times the SMs and the SM clock that ``nvidia-smi``
-reports). A sum of popcounts of ANDs over words needs an AND per word and
-a carry-save (Harley-Seal) sum of two logic operations per word, which
-leaves one popcount per 16 words.
+Each kernel's ``bound_ms`` is the larger of its bytes over the memory rate
+and the least time of its operations. Phase 1 measures the card's rates of
+32-bit three-input logic (``lop3``), popcount and the binary tensor-core
+product (``mma ... .b1 ... .and.popc``) with the probes of
+``kernels/probe/csrc/rates.cu``. Logic operations are priced at the larger
+of the measured rate and the documented 64 per clock per SM (CUDA C++
+Programming Guide, arithmetic instruction throughput, compute capability
+9.0) times the SMs and ``clocks.max.sm``; popcounts likewise at 16 per
+clock per SM. A sum of popcounts of ANDs over words needs an AND per word
+and a carry-save (Harley-Seal) sum of two logic operations per word, which
+leaves one popcount per 16 words (the ALU route). The tiled count's 8 x 8
+tiles are also an ``m8n8`` binary product, priced as bit products over the
+faster measured b1 ``mma`` rate (the tensor route); its operations take the
+faster of the two routes. The coverage kernels' operations are counted from
+this run's data: the scan's loads and ANDs per (set, word) and 96 per
+nonzero AND, the anchored walk's per (set, anchor word) and 3 per set bit.
 
 It prints a JSON line of per-kernel numbers and, last, the JSON status line.
 Any mismatch, build failure or missing card exits non-zero before that line.
@@ -71,6 +88,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -83,6 +101,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "src/repro_torch/kernels/intersect/csrc/intersect.cu"
 COVERAGE = "coverage_accumulate_indexed"
+ANCHORED = "coverage_accumulate_anchored"
 COVERAGE_SOURCE = "src/repro_torch/kernels/coverage/csrc/coverage.cu"
 COVERAGE_REPLACES = "src/repro/kernels/coverage/coverage.py:72"
 PRIVACY_ROWS = 500_000
@@ -103,14 +122,15 @@ KERNELS = {
 }
 DONATING = "intersect_classify_write_gathered_donating"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
-INT32_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores (data sheet)
 # The fewest operations a sum of popcounts of ANDs over words needs: the
 # AND of each word, then a carry-save (Harley-Seal) tree of two 3-input
 # logic operations per word that leaves one popcount per HARLEY_SEAL_WORDS
 OPS_PER_WORD = 3  # AND and two carry-save operations per word of each pair
 HARLEY_SEAL_WORDS = 16
-# 32-bit population counts issued per clock per SM at compute capability
-# 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput table)
+# 32-bit logic operations and population counts issued per clock per SM at
+# compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
+# instruction throughput table)
+LOGIC_PER_CLOCK_PER_SM = 64
 POPC_PER_CLOCK_PER_SM = 16
 TILED = "intersect_count_tiled"
 TILED_SOURCE = "src/repro_torch/kernels/intersect/csrc/tiled.cu"
@@ -144,10 +164,32 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn()`` without the host's launch overhead:
+    ``iters`` calls captured in one CUDA graph, replayed once to warm up,
+    then once between CUDA events. ``fn`` must not synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del g
+    return ms
+
+
 # -- phase 1 -----------------------------------------------------------------
 
 
-def phase_device():
+def phase_device() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -157,21 +199,52 @@ def phase_device():
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build()
+    paths = _build.build()
     build_s = time.perf_counter() - t0
     for name in _build.SOURCES:
         for line in _build.BUILD_LOGS[name].splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print(f"  ptxas[{name}] {line.strip()}")
-    popc_per_s = _popc_per_s()
+    _print_probe_sass(paths["probe"])
+    rates = _rates()
     print(f"phase device: ok card={card!r} torch={torch.__version__} cuda={torch.version.cuda} "
-          f"build_s={build_s:.1f} popc_per_s={popc_per_s:.4g}", flush=True)
-    return popc_per_s
+          f"build_s={build_s:.1f} rates={json.dumps(rates)}", flush=True)
+    return rates
 
 
-def _popc_per_s() -> float:
-    """32-bit popcounts per second: the issue rate per SM times the SMs and
-    the card's maximum SM clock as ``nvidia-smi`` reports it."""
+def _print_probe_sass(lib: Path) -> None:
+    """The probes' instruction counts from ``cuobjdump -sass``: the logic
+    probe must be LOP3s, the mma probes BMMAs (nothing folded away)."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    if not tool.is_file():
+        print("  probe sass: cuobjdump not found", flush=True)
+        return
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True, timeout=120)
+    fn, counts = None, {}
+    for line in out.stdout.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            counts[fn] = {}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if fn and m:
+            op = m.group(1)  # BMMA keeps its shape and operation, e.g. BMMA.88128.AND.POPC
+            key = op if op.startswith("BMMA") else op.split(".")[0]
+            if key.split(".")[0] in ("LOP3", "POPC", "BMMA"):
+                counts[fn][key] = counts[fn].get(key, 0) + 1
+    for fn, c in counts.items():
+        print(f"  probe sass {fn}: {c}", flush=True)
+
+
+def _rates() -> dict:
+    """The card's measured rates (the probes) and the documented ones (per
+    clock per SM x SMs x the maximum SM clock that ``nvidia-smi`` reports),
+    and the rates the bounds use: logic and popcounts at the larger of the
+    two, the b1 product at the faster measured shape."""
+    from repro_torch.kernels.probe import measure_rates
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=60,
@@ -181,18 +254,41 @@ def _popc_per_s() -> float:
     except (IndexError, ValueError):
         fail(f"nvidia-smi gave no SM clock: {smi.stdout!r} {smi.stderr!r}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f"  popcount rate: {POPC_PER_CLOCK_PER_SM}/clock/SM x {sms} SMs x {mhz:.0f} MHz", flush=True)
-    return POPC_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    per_clock = sms * mhz * 1e6
+    measured = measure_rates(torch.device("cuda", 0))
+    for kind, r in measured.items():
+        print(f"  rate {kind}: {r['ops_per_s']:.6g}/s = {r['ops_per_s'] / per_clock:.2f}/clock/SM "
+              f"({r['ops']:.6g} in {r['ms']:.3f} ms)", flush=True)
+    print(f"  documented: logic {LOGIC_PER_CLOCK_PER_SM}/clock/SM, popcount "
+          f"{POPC_PER_CLOCK_PER_SM}/clock/SM; x {sms} SMs x {mhz:.0f} MHz", flush=True)
+    got = {k: r["ops_per_s"] for k, r in measured.items()}
+    return {
+        "sms": sms, "clocks_max_sm_mhz": mhz,
+        "measured_per_s": got,
+        "measured_per_clock_per_sm": {k: v / per_clock for k, v in got.items()},
+        "logic_per_s": max(got["lop3"], LOGIC_PER_CLOCK_PER_SM * per_clock),
+        "popc_per_s": max(got["popc"], POPC_PER_CLOCK_PER_SM * per_clock),
+        "bmma_per_s": max(got["mma_m8n8k128"], got["mma_m16n8k256"]),
+    }
 
 
-def _bound(nbytes: float, ops: float, popcounts: float, popc_per_s: float) -> dict:
+def _bound(nbytes: float, ops: float, popcounts: float, rates: dict,
+           bit_products: float | None = None) -> dict:
     """The least time of a function: the larger of its bytes over the memory
-    rate, its other 32-bit operations over the 32-bit rate and its popcounts
-    over their own rate, each limit printed."""
-    bytes_s, ops_s, popc_s = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S, popcounts / popc_per_s
-    return {"bound_ms": max(bytes_s, ops_s, popc_s) * 1e3,
-            "bound_by": "bytes" if bytes_s >= max(ops_s, popc_s) else "operations",
-            "bytes_ms": bytes_s * 1e3, "ops_ms": ops_s * 1e3, "popc_ms": popc_s * 1e3}
+    rate and its operations' least time, the faster of the ALU route (the
+    larger of its logic operations over the logic rate and its popcounts
+    over theirs) and, where the function is a binary product, the tensor
+    route (its bit products over the b1 ``mma`` rate). Each limit printed."""
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    ops_s, popc_s = ops / rates["logic_per_s"], popcounts / rates["popc_per_s"]
+    alu_s = max(ops_s, popc_s)
+    tensor_s = None if bit_products is None else bit_products / rates["bmma_per_s"]
+    compute_s = alu_s if tensor_s is None else min(alu_s, tensor_s)
+    return {"bound_ms": max(bytes_s, compute_s) * 1e3,
+            "bound_by": "bytes" if bytes_s >= compute_s else "operations",
+            "bytes_ms": bytes_s * 1e3, "ops_ms": ops_s * 1e3, "popc_ms": popc_s * 1e3,
+            "alu_ms": alu_s * 1e3, "tensor_ms": None if tensor_s is None else tensor_s * 1e3,
+            "route": "alu" if tensor_s is None or alu_s <= tensor_s else "tensor"}
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -304,7 +400,7 @@ def _check_donating(bits, pairs, pc, tau) -> int:
     return _max_abs_err(got, want)
 
 
-def _bound_ms(name, bits, pairs, popc_per_s) -> dict:
+def _bound_ms(name, bits, pairs, rates) -> dict:
     _, write, classify = KERNELS[name]
     m, w = pairs.shape[0], bits.shape[1]
     if _gathered(name):
@@ -315,10 +411,10 @@ def _bound_ms(name, bits, pairs, popc_per_s) -> dict:
         unique_rows = int(torch.unique(pairs).numel())
         read = unique_rows * w * 4 + m * 8 + (unique_rows * 4 if classify else 0)
     written = (m * w * 4 if write else 0) + m * 4 + (m * 4 if classify else 0)
-    return _bound(read + written, OPS_PER_WORD * m * w, m * w / HARLEY_SEAL_WORDS, popc_per_s)
+    return _bound(read + written, OPS_PER_WORD * m * w, m * w / HARLEY_SEAL_WORDS, rates)
 
 
-def phase_kernels(device, n_words: int, batch_bucket: int, popc_per_s: float):
+def phase_kernels(device, n_words: int, batch_bucket: int, rates: dict):
     from repro_torch.core.bitops import padded_words
 
     w_pad = padded_words(n_words)
@@ -368,7 +464,7 @@ def phase_kernels(device, n_words: int, batch_bucket: int, popc_per_s: float):
         ms = time_ms(kern, 20)
         plain_ms = time_ms(plain, 5)
         rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      **_bound_ms(name, bits, pairs, popc_per_s),
+                      **_bound_ms(name, bits, pairs, rates),
                       "t": parents[write], "W": w_pad, "M": batch_bucket, **extra}
         del bits, pairs, pc, kern, plain
         torch.cuda.empty_cache()
@@ -376,6 +472,7 @@ def phase_kernels(device, n_words: int, batch_bucket: int, popc_per_s: float):
         {"name": n, "kernel_ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "share": r["bound_ms"] / r["ms"],
          "bytes_ms": r["bytes_ms"], "ops_ms": r["ops_ms"], "popc_ms": r["popc_ms"],
+         "route": r["route"],
          **({"gather_ms": r["gather_ms"]} if "gather_ms" in r else {}),
          "shape": {"t": r["t"], "W": r["W"], "M": r["M"]}}
         for n, r in rows.items()]}), flush=True)
@@ -601,11 +698,13 @@ def _same_profile(got, want, label: str) -> None:
             fail(f"{label}: {name} differs")
 
 
-def phase_privacy(device):
+def phase_privacy(device, poker_res):
     """The privacy path on the exposed table: the mine on three engines, the
-    report and risk profile through the coverage kernel against the torch
-    and host placements, then the planner on the card. Returns the coverage
-    kernel's launches on the path, the table's host bitsets and its size-3
+    report and risk profile through the coverage kernels against the torch
+    and host placements (its sparse QIs take the anchored kernel), the risk
+    profile of phase 3's Poker-hand mine (QIs of frequent items: the
+    scanning kernel), then the planner on the card. Returns both coverage
+    kernels' launches on the path, the table's host bitsets and its size-3
     quasi-identifiers (the kernel timing's sparse case)."""
     from repro_torch.core import DevicePlacement, HostPlacement, KyivConfig, prepare
     from repro_torch.core.kyiv import mine_preprocessed
@@ -629,8 +728,9 @@ def phase_privacy(device):
     for engine in ("torch", "numpy"):
         _same_mine(res[engine], res["cuda"], f"privacy: the {engine} mine against the cuda mine")
 
-    # the main path: the report's risk profile through the coverage kernel
-    # (on the mine's own placement), then the report
+    # the main path: the report's risk profile through the coverage kernels
+    # (on the mine's own placement), then the report; then the Poker-hand
+    # mine's profile
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     C.reset_launches()
@@ -641,10 +741,18 @@ def phase_privacy(device):
     wall["risk_profile_cuda_s"] = time.perf_counter() - t0
     got = report_as_dict(report)
     wall["report_cuda_s"] = time.perf_counter() - t0
-    launches = C.LAUNCHES[COVERAGE]
     peak = torch.cuda.max_memory_allocated()
-    if launches == 0:
-        fail(f"privacy: the risk profile never launched {COVERAGE}")
+    exposed_launches = dict(C.LAUNCHES)
+    t0 = time.perf_counter()
+    poker_profile = risk_profile(poker_res)
+    torch.cuda.synchronize()
+    wall["poker_risk_profile_cuda_s"] = time.perf_counter() - t0
+    launches = dict(C.LAUNCHES)
+    missing = [k for k in (COVERAGE, ANCHORED) if launches[k] == 0]
+    if missing:
+        fail(f"privacy: the risk profiles never launched {missing} (launches {launches})")
+    _same_profile(poker_profile, risk_profile(poker_res, placement=HostPlacement()),
+                  "privacy: the Poker-hand profile against the host placement's")
     placements = {"torch": DevicePlacement("torch", device=dev), "numpy": HostPlacement()}
     for engine, placement in placements.items():
         t0 = time.perf_counter()
@@ -681,6 +789,8 @@ def phase_privacy(device):
         "W": int(table_bits.shape[1]), "items": int(table_bits.shape[0]), "prepare_s": prep_s,
         "qis_by_size": {str(k): v for k, v in sorted(by_size.items())},
         "records_at_risk": got["unique_records"], "coverage_launches": launches,
+        "exposed_launches": exposed_launches,
+        "poker_qis": len(poker_res.itemsets),
         "report_peak_bytes": peak, **wall,
         "plan": {"dataset": f"exposed_dataset(n={n_plan}, m=6, seed=0)", "wall_s": plan_s,
                  "rounds": plan.rounds, "initial_qis": plan.initial_qis,
@@ -692,16 +802,21 @@ def phase_privacy(device):
     return launches, table_bits, qi3
 
 
-def _coverage_inputs(t, n_words, m, k, seed, weights, device, pad=True):
+def _coverage_inputs(t, n_words, m, k, seed, weights, device, pad=True, sparse=False):
     """(t, n_words) random words, uploaded as the placement uploads them
     (``pad``: word axis padded to a multiple of 4) or as they are, with an
-    empty row 0 and an all-ones row 1; (m, k) sets with repeated items and
-    sets on rows 0 and 1; weights in {0, 1, 2} or near 2**30 (sums overflow
-    int32)."""
+    empty row 0 and an all-ones row 1; with ``sparse``, a row 2 of sign-bit
+    words and rows 3 to t/2 with about one word in 64 nonzero (short anchor
+    lists); (m, k) sets with repeated items and sets on rows 0 and 1;
+    weights in {0, 1, 2} or near 2**30 (sums overflow int32)."""
     from repro_torch.core.bitops import device_bits
 
     rng = np.random.default_rng(seed)
     bits = rng.integers(0, 2**32, size=(t, n_words), dtype=np.uint32)
+    if sparse and t >= 4:
+        bits[3 : t // 2] *= rng.integers(0, 64, size=(t // 2 - 3, n_words)) == 0
+        bits[2] = 0
+        bits[2, ::3] = 0x80000000
     bits[0], bits[1] = 0, 0xFFFFFFFF
     sets = rng.integers(0, t, size=(m, k)).astype(np.int32)
     if m >= 3:
@@ -716,88 +831,156 @@ def _coverage_inputs(t, n_words, m, k, seed, weights, device, pad=True):
     return (bits, sets, wt), (dbits, torch.from_numpy(sets).to(device), torch.from_numpy(wt).to(device))
 
 
-def _coverage_bound(bits, sets, wt) -> dict:
-    """Least time for one batch: the distinct item rows read once, the
-    (32, W) output written once and the sets and weights read once, over
-    the memory rate; 2K operations per (live set, word) for the loads and
-    ANDs plus 96 per nonzero (live set, word) AND for the 32 bit planes,
-    over the 32-bit rate. Weight-0 sets need no work."""
+def _coverage_bound(bits, sets, wt, rates, index=None) -> dict:
+    """Least time for one batch, weight-0 sets needing no work. Both
+    kernels write the (32, W) output once and read the sets and weights
+    once, and the function adds each set bit of an AND to the output: 3
+    operations a set bit. The scan (``index`` None) reads the distinct item
+    rows once and does 2K operations per (live set, word) for the loads and
+    ANDs. The anchored walk (``index.walk_anchors``, the walk of the
+    anchored kernel) reads the index entries of its anchors, two offsets per
+    distinct item and the distinct (item, word) member words it reads, once
+    each, and does 2K operations per (live set, anchor word)."""
+    from repro_torch.core.bitops import popcount32
+    from repro_torch.kernels.coverage.index import anchors, walk_anchors
+
     m, k = sets.shape
     w = bits.shape[1]
-    live = wt != 0
-    rows = int(torch.unique(sets[live]).numel())
-    nbytes = rows * w * 4 + 32 * w * 4 + m * (k + 1) * 4
-    idx = sets[live].long()
-    nonzero = 0
-    for chunk in idx.split(256):
-        mask = bits[chunk[:, 0]]
-        for j in range(1, k):
-            mask &= bits[chunk[:, j]]
-        nonzero += int((mask != 0).sum().item())
-    ops = int(live.sum().item()) * w * 2 * k + 96 * nonzero
-    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
-    return {"bound_ms": max(bytes_s, ops_s) * 1e3, "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-            "bytes": nbytes, "bytes_ms": bytes_s * 1e3, "ops": ops, "ops_ms": ops_s * 1e3,
-            "rows_read": rows, "nonzero_words": nonzero}
+    idx = sets[wt != 0].long()
+    base = 32 * w * 4 + m * (k + 1) * 4
+    if index is not None:
+        anchor = anchors(index, idx)
+        walk = walk_anchors(bits, index, idx, anchor, reads=True)
+        counts = index.offsets[1:] - index.offsets[:-1]
+        terms = {"pairs": int(walk.word.numel()),
+                 "member_words": int(torch.unique(walk.reads).numel()),
+                 "index_entries": int(counts[torch.unique(anchor)].sum().item()),
+                 "items": int(torch.unique(idx).numel()),
+                 "set_bits": int(popcount32(walk.x).to(torch.int64).sum().item())}
+        nbytes = (base + terms["index_entries"] * 4 + terms["items"] * 16
+                  + terms["member_words"] * 4)
+        ops = 2 * k * terms["pairs"] + 3 * terms["set_bits"]
+    else:
+        set_bits = 0
+        for chunk in idx.split(256):
+            mask = bits[chunk[:, 0]]
+            for j in range(1, k):
+                mask &= bits[chunk[:, j]]
+            set_bits += int(popcount32(mask).to(torch.int64).sum().item())
+        terms = {"rows_read": int(torch.unique(idx).numel()), "set_bits": set_bits}
+        nbytes = base + terms["rows_read"] * w * 4
+        ops = idx.shape[0] * w * 2 * k + 3 * set_bits
+    return {**_bound(nbytes, ops, 0, rates), "bytes": nbytes, "ops": ops, **terms}
 
 
-def _time_coverage(label, bits, sets, wt) -> dict:
-    from repro_torch.kernels.coverage import coverage_accumulate_indexed, coverage_accumulate_ref
+def _time_coverage(label, bits, sets, wt, bound, index=None) -> dict:
+    """One kernel on one batch, held against its plain version and the
+    other plain version, timed beside its plain version and ``bound`` (the
+    batch's :func:`_coverage_bound`): the anchored kernel where ``index`` is
+    given (with the dispatch's anchor hint), the scanning kernel
+    otherwise."""
+    from repro_torch.kernels.coverage import (
+        anchored_plan,
+        coverage_accumulate_anchored,
+        coverage_accumulate_anchored_ref,
+        coverage_accumulate_indexed,
+        coverage_accumulate_ref,
+    )
 
-    got = coverage_accumulate_indexed(bits, sets, wt)
-    want = coverage_accumulate_ref(bits, sets, wt)
+    if index is not None:
+        _, longest = anchored_plan(index.counts, sets.cpu().numpy(), wt.cpu().numpy(), bits.shape[1])
+        kern = lambda: coverage_accumulate_anchored(bits, index, sets, wt, longest)
+        plain = lambda: coverage_accumulate_anchored_ref(bits, index, sets, wt, chunk_pairs=1 << 22)
+        name = ANCHORED
+    else:
+        kern = lambda: coverage_accumulate_indexed(bits, sets, wt)
+        plain = lambda: coverage_accumulate_ref(bits, sets, wt)
+        name = COVERAGE
+    got, want = kern(), plain()
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail(f"{COVERAGE} {label}: differs from its plain version")
+    if not torch.equal(got, want) or not torch.equal(got, coverage_accumulate_ref(bits, sets, wt)):
+        fail(f"{name} {label}: differs from the plain versions")
     del got, want
-    kernel_ms = time_ms(lambda: coverage_accumulate_indexed(bits, sets, wt), 20)
-    plain_ms = time_ms(lambda: coverage_accumulate_ref(bits, sets, wt), 3)
-    bound = _coverage_bound(bits, sets, wt)
-    return {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "share": bound["bound_ms"] / kernel_ms,
+    kernel_ms = time_ms(kern, 20)
+    # a short kernel can finish before the host issues the next call: the
+    # graph's replay times the device alone
+    kernel_graph_ms = graph_ms(kern, 20)
+    plain_ms = time_ms(plain, 3)
+    return {"kernel": name, "kernel_ms": kernel_ms, "graph_ms": kernel_graph_ms, "plain_ms": plain_ms,
+            "share": bound["bound_ms"] / kernel_ms, "graph_share": bound["bound_ms"] / kernel_graph_ms,
             "shape": {"t": int(bits.shape[0]), "W": int(bits.shape[1]), "M": int(sets.shape[0]),
                       "K": int(sets.shape[1]), "live_sets": int((wt != 0).sum().item())},
             **bound}
 
 
-def phase_coverage_kernel(device, table_bits, qi3):
-    """The coverage kernel against its plain version (and the host engine
-    on small inputs), bit for bit, then timed at the privacy path's batch:
-    the table's padded width, K = 3 and the bucket of a full batch (W =
-    15,628 and M = 8,192, the bucket of 4,294 sets, for 500,000 rows)."""
-    from repro_torch.core.bitops import device_bits, padded_words
+def _coverage_sweep(device) -> tuple[int, int]:
+    """Both coverage kernels against the plain versions, bit for bit: the
+    1M-, 500k- and 100k-row tables' widths as uploaded (31,252, 15,628 and
+    3,128 words) and unpadded, small widths also against the host engine,
+    K 1-4, weights that overflow int32, M up to the 500k table's bucket, on
+    tables with empty, all-ones, sign-bit, sparse and random rows, the
+    index built on each; the anchored kernel with the batch's longest anchor
+    and with 1 (one slice per set)."""
     from repro_torch.kernels.coverage import (
+        anchored_plan,
+        build_coverage_index,
+        coverage_accumulate_anchored,
+        coverage_accumulate_anchored_ref,
         coverage_accumulate_host,
         coverage_accumulate_indexed,
         coverage_accumulate_ref,
     )
-    from repro_torch.kernels.intersect import next_bucket
 
-    # the 1M-, 500k- and 100k-row tables' widths as uploaded (31,252,
-    # 15,628 and 3,128 words) and unpadded, and small widths also held
-    # against the host; M up to the 500k table's bucket
     checks = err = 0
     for n_words, pad in ((31_250, True), (15_625, True), (3_125, True), (31_250, False),
                          (3_125, False), (1, False), (3, False), (33, False)):
         for k in (1, 2, 3, 4):
             for weights in ("small", "overflow"):
                 (hb, hs, hw), (bits, sets, wt) = _coverage_inputs(
-                    64, n_words, 8192, k, seed=n_words + k, weights=weights, device=device, pad=pad)
+                    64, n_words, 8192, k, seed=n_words + k, weights=weights, device=device, pad=pad,
+                    sparse=True)
+                index = build_coverage_index(bits)
                 for m in (0, 1, 7, 4096, 8192):
                     s, x = sets[:m].contiguous(), wt[:m].contiguous()
-                    got = coverage_accumulate_indexed(bits, s, x)
+                    longest = anchored_plan(index.counts, hs[:m], hw[:m], bits.shape[1])[1]
                     want = coverage_accumulate_ref(bits, s, x)
+                    outs = {COVERAGE: [coverage_accumulate_indexed(bits, s, x)],
+                            ANCHORED: [coverage_accumulate_anchored(bits, index, s, x, longest),
+                                       coverage_accumulate_anchored(bits, index, s, x, 1),
+                                       coverage_accumulate_anchored_ref(bits, index, s, x,
+                                                                        chunk_pairs=1 << 22)]}
                     torch.cuda.synchronize()
-                    e = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
                     if n_words <= 33:
-                        host = coverage_accumulate_host(hb, hs[:m], hw[:m])
-                        e = max(e, int(np.abs(got[:, :n_words].cpu().numpy().astype(np.int64)
-                                              - host.astype(np.int64)).max()))
-                    if e:
-                        fail(f"{COVERAGE} W={bits.shape[1]} K={k} M={m} weights={weights}: "
-                             f"max_abs_err={e}")
-                    err, checks = max(err, e), checks + 1
-                del bits, sets, wt
+                        host = torch.from_numpy(coverage_accumulate_host(hb, hs[:m], hw[:m]))
+                        want_host = want[:, :n_words].cpu()
+                        if not torch.equal(want_host, host):
+                            fail(f"coverage W={n_words} K={k} M={m}: the plain version differs "
+                                 "from the host engine")
+                    for name, got in outs.items():
+                        e = max(int((g.to(torch.int64) - want.to(torch.int64)).abs().max().item())
+                                for g in got)
+                        if e:
+                            fail(f"{name} W={bits.shape[1]} K={k} M={m} weights={weights}: "
+                                 f"max_abs_err={e}")
+                        err, checks = max(err, e), checks + 1
+                del bits, sets, wt, index
     torch.cuda.empty_cache()
+    return checks, err
+
+
+def phase_coverage_kernel(device, table_bits, qi3, rates):
+    """Both coverage kernels against the plain versions over the sweep,
+    then timed at the privacy path's batch: the table's padded width, K = 3
+    and the bucket of a full batch (W = 15,628 and M = 8,192, the bucket of
+    4,294 sets, for 500,000 rows). On the sparse batch of real QIs both
+    kernels run (the dispatch picks the anchored one); on the dense batch of
+    random rows the scanning one (the dispatch's pick). The index of the
+    table is built and timed here."""
+    from repro_torch.core.bitops import device_bits, padded_words
+    from repro_torch.kernels.coverage import anchored_plan, build_coverage_index
+    from repro_torch.kernels.intersect import next_bucket
+
+    checks, err = _coverage_sweep(device)
 
     n_words = table_bits.shape[1]
     w_pad = padded_words(n_words)
@@ -808,25 +991,45 @@ def phase_coverage_kernel(device, table_bits, qi3):
     chunk = np.pad(qi3[:cap], ((0, bucket - cap), (0, 0)), mode="edge")
     wchunk = np.pad(np.ones(cap, dtype=np.int32), (0, bucket - cap))
     bits = device_bits(table_bits, device)
-    sparse = _time_coverage("sparse", bits, torch.from_numpy(chunk).to(device),
-                            torch.from_numpy(wchunk).to(device))
-    del bits
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = build_coverage_index(bits)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    anchored, longest = anchored_plan(index.counts, chunk, wchunk, w_pad)
+    if not anchored:
+        fail("coverage timing: the dispatch does not anchor the sparse batch")
+    sets_d, wt_d = torch.from_numpy(chunk).to(device), torch.from_numpy(wchunk).to(device)
+    # one bound for both kernels: the function's least work on this batch,
+    # which is the walk's
+    bound = _coverage_bound(bits, sets_d, wt_d, rates, index)
+    sparse = _time_coverage("sparse", bits, sets_d, wt_d, bound, index)
+    sparse_scan = _time_coverage("sparse", bits, sets_d, wt_d, bound)
+    index_info = {"bytes": index.nbytes(), "nonzero_words": int(index.counts.sum()), "build_s": index_s,
+                  "table_bytes": int(bits.numel()) * 4, "longest_anchor": longest}
+    del bits, index, sets_d, wt_d
     torch.cuda.empty_cache()
-    _, (bits, sets, _) = _coverage_inputs(512, n_words, bucket, 3, seed=7, weights="small",
-                                          device=device)
-    dense = _time_coverage("dense", bits, sets,
-                           torch.ones(sets.shape[0], dtype=torch.int32, device=device))
+    (_, dsets, _), (bits, sets, _) = _coverage_inputs(512, n_words, bucket, 3, seed=7, weights="small",
+                                                      device=device)
+    ones = torch.ones(sets.shape[0], dtype=torch.int32, device=device)
+    dindex = build_coverage_index(bits)
+    if anchored_plan(dindex.counts, dsets, ones.cpu().numpy(), bits.shape[1])[0]:
+        fail("coverage timing: the dispatch anchors the dense batch")
+    del dindex
+    dense = _time_coverage("dense", bits, sets, ones, _coverage_bound(bits, sets, ones, rates))
     if bits.shape[1] != w_pad:
         fail(f"coverage timing: W={bits.shape[1]}, expected {w_pad}")
     del bits, sets
     torch.cuda.empty_cache()
     print("phase coverage-kernel: ok " + json.dumps({
-        "checks": checks, "max_abs_err": err, "batch_cap": cap,
+        "checks": checks, "max_abs_err": err, "batch_cap": cap, "index": index_info,
         "sparse": {"inputs": f"the first {cap} size-3 QIs of the exposed table, "
-                             f"padded to {bucket} with weight 0", **sparse},
+                             f"padded to {bucket} with weight 0", ANCHORED: sparse, COVERAGE: sparse_scan,
+                   "scan_over_anchored": sparse_scan["graph_ms"] / sparse["graph_ms"],
+                   "scan_over_anchored_calls": sparse_scan["kernel_ms"] / sparse["kernel_ms"]},
         "dense": {"inputs": "512 random rows, random sets, weight 1", **dense},
     }), flush=True)
-    return {"max_abs_err": err, "sparse": sparse, "dense": dense}
+    return {"max_abs_err": err, "sparse": sparse, "sparse_scan": sparse_scan, "dense": dense}
 
 
 # -- phase 9 -----------------------------------------------------------------
@@ -852,7 +1055,8 @@ def _tiled_case(sizes, bm: int, w: int, seed: int, device):
 
 def _tiled_sweep(device) -> int:
     """The kernel against its plain version, bit for bit: block sizes 1, 2,
-    3, 4, 8 and 16 at widths with 32-bit and 128-bit loads, in three
+    3, 4, 8 and 16 at widths with 32-bit and 128-bit loads (with and
+    without a partial 16-word chunk at the end), in three
     group layouts (edge: empty, one-row, one-block and ragged groups;
     single: one block pair, a CTA per sub-block over all words; many:
     hundreds of random groups), each on its first block pair and on all of
@@ -861,7 +1065,7 @@ def _tiled_sweep(device) -> int:
 
     checks = 0
     for bm in (1, 2, 3, 4, 8, 16):
-        for w in (1, 3, 5, 33, 3_128, 31_252):
+        for w in (1, 3, 4, 5, 20, 33, 3_128, 31_252):
             rng = np.random.default_rng(bm * 100_003 + w)
             n_groups = 600 if w <= 33 else 40 if w <= 3_128 else 6
             layouts = {"edge": [0, 1, 2, bm, bm + 1, 0, 3 * bm - 1], "single": [bm],
@@ -899,7 +1103,7 @@ def _level3_frontier(prep, device):
     return states[4], next(s.candidates for s in res.stats if s.k == 4)
 
 
-def phase_tiled(device, prep, popc_per_s: float) -> dict:
+def phase_tiled(device, prep, rates: dict) -> dict:
     """The tiled count's sweep, then its path at full width on the Poker-hand
     level-3 frontier: the counts of all within-group pairs against the
     pairwise count kernel and the plain version; timed beside both."""
@@ -979,13 +1183,15 @@ def phase_tiled(device, prep, popc_per_s: float) -> dict:
     entries = n_tiles * TILED_BM * TILED_BM
     # the group-aligned rows and the block indices read once, the tiles
     # written once; per entry and word an AND and a carry-save sum, and a
-    # popcount per HARLEY_SEAL_WORDS words
+    # popcount per HARLEY_SEAL_WORDS words (the ALU route), or 32 bit
+    # products (the tensor route)
     bound = _bound(t_pad * w * 4 + n_tiles * 8 + entries * 4, OPS_PER_WORD * entries * w,
-                   entries * w / HARLEY_SEAL_WORDS, popc_per_s)
-    # the limits of the two kernels' own design, one __popc per entry (pair)
-    # and word: not the function's bound
-    kernel_popc_ms = entries * w / popc_per_s * 1e3
-    pairwise_popc_ms = len(pairs) * w / popc_per_s * 1e3
+                   entries * w / HARLEY_SEAL_WORDS, rates, bit_products=entries * w * 32)
+    # the limits of the two kernels' own designs, not the function's bound:
+    # the tiled kernel's m8n8k128 products, the pairwise kernel's one
+    # popcount per pair and word
+    kernel_mma_ms = entries * w * 32 / rates["measured_per_s"]["mma_m8n8k128"] * 1e3
+    pairwise_popc_ms = len(pairs) * w / rates["popc_per_s"] * 1e3
     n_batches = len(batches)
     del bits, ti_d, tj_d, pw, batches
     torch.cuda.empty_cache()
@@ -1000,7 +1206,7 @@ def phase_tiled(device, prep, popc_per_s: float) -> dict:
         "path_kernel_s": path_kernel_s, "path_s": path_s,
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "pairwise_ms": pairwise_ms,
         "pairwise_launches": n_batches,
-        "kernel_popc_ms": kernel_popc_ms, "pairwise_popc_ms": pairwise_popc_ms,
+        "kernel_mma_ms": kernel_mma_ms, "pairwise_popc_ms": pairwise_popc_ms,
         "share": bound["bound_ms"] / kernel_ms,
         "pairwise_over_tiled": pairwise_ms / kernel_ms, **bound,
     }
@@ -1019,25 +1225,25 @@ def main() -> None:
     torch.cuda.set_device(device)
     t_start = time.perf_counter()
 
-    popc_per_s = phase_device()
+    rates = phase_device()
     n_words = (1_000_000 + 31) // 32  # the Poker-hand table's bitset width
     batch_cap = max(4096, (1 << 28) // n_words)  # core.frontier.mine_levels' batch cap
     from repro_torch.kernels.intersect import next_bucket
 
-    timing = phase_kernels(device, n_words, next_bucket(batch_cap), popc_per_s)
+    timing = phase_kernels(device, n_words, next_bucket(batch_cap), rates)
     launches, *poker = phase_main(device)
     connect_launches, *connect = phase_host_classified(device)
     launches.update({k: v for k, v in connect_launches.items()
                      if k in ("intersect_write_indexed", "intersect_count_indexed")})
     launches.update(phase_gathered(device, poker, connect))
-    poker_prep = poker[0]
+    poker_prep, poker_res = poker
     del poker, connect
     phase_checkpoint(device)
-    cov_launches, table_bits, qi3 = phase_privacy(device)
-    launches[COVERAGE] = cov_launches
-    timing[COVERAGE] = phase_coverage_kernel(device, table_bits, qi3)
-    del table_bits, qi3
-    tiled = phase_tiled(device, poker_prep, popc_per_s)
+    cov_launches, table_bits, qi3 = phase_privacy(device, poker_res)
+    launches.update(cov_launches)
+    cov = phase_coverage_kernel(device, table_bits, qi3, rates)
+    del table_bits, qi3, poker_res
+    tiled = phase_tiled(device, poker_prep, rates)
     del poker_prep
 
     kernels = []
@@ -1050,15 +1256,27 @@ def main() -> None:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             **({"gather_ms": r["gather_ms"]} if "gather_ms" in r else {}),
         })
-    r = timing[COVERAGE]
+    # the scanning kernel at the dense batch, which the dispatch gives it,
+    # and beside it on the sparse batch, which the dispatch anchors. A
+    # coverage kernel's ms is its time in a CUDA graph: the anchored one
+    # ends before the host issues its next call, so back-to-back calls
+    # (kernel_ms) time the wrapper's host work there
+    d, sp = cov["dense"], cov["sparse_scan"]
     kernels.append({
         "name": COVERAGE, "route": "cuda", "source": COVERAGE_SOURCE, "replaces": COVERAGE_REPLACES,
-        "launches": launches[COVERAGE], "max_abs_err": r["max_abs_err"],
-        "ms": r["sparse"]["kernel_ms"], "kernel_ms": r["sparse"]["kernel_ms"],
-        "plain_ms": r["sparse"]["plain_ms"], "bound_ms": r["sparse"]["bound_ms"],
-        "bound_by": r["sparse"]["bound_by"], "library_ms": None,
-        "dense_ms": r["dense"]["kernel_ms"], "dense_plain_ms": r["dense"]["plain_ms"],
-        "dense_bound_ms": r["dense"]["bound_ms"], "dense_bound_by": r["dense"]["bound_by"],
+        "launches": launches[COVERAGE], "max_abs_err": cov["max_abs_err"],
+        "ms": d["graph_ms"], "kernel_ms": d["kernel_ms"], "plain_ms": d["plain_ms"],
+        "bound_ms": d["bound_ms"], "bound_by": d["bound_by"], "library_ms": None,
+        "sparse_ms": sp["graph_ms"], "sparse_plain_ms": sp["plain_ms"],
+        "sparse_bound_ms": sp["bound_ms"], "sparse_bound_by": sp["bound_by"],
+    })
+    a = cov["sparse"]
+    kernels.append({
+        "name": ANCHORED, "route": "cuda", "source": COVERAGE_SOURCE, "replaces": COVERAGE_REPLACES,
+        "launches": launches[ANCHORED], "max_abs_err": cov["max_abs_err"],
+        "ms": a["graph_ms"], "kernel_ms": a["kernel_ms"], "plain_ms": a["plain_ms"],
+        "bound_ms": a["bound_ms"], "bound_by": a["bound_by"], "library_ms": None,
+        "scan_ms": sp["graph_ms"],
     })
     # launched by its own path only, as in the reference: no mine calls it.
     # No single PyTorch call counts bit intersections of packed words, so

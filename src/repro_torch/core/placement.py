@@ -36,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels.coverage import index as _cov_index
 from ..kernels.coverage import ops as _cov
 from ..kernels.coverage.ref import coverage_accumulate_host
 from ..kernels.frontier import frontier as _f
@@ -210,16 +211,17 @@ class DevicePlacement:
     # -- coverage -------------------------------------------------------------
 
     def prepare_coverage(self, bits):
-        """Upload the item bitsets once (int32 words, word axis padded)."""
-        return device_bits(bits, self.device)
+        """Upload the item bitsets once (int32 words, word axis padded); the
+        ``cuda`` engine also builds their index of nonzero words there, for
+        the anchored kernel. Returns ``(bits, index or None)``."""
+        dbits = device_bits(bits, self.device)
+        return dbits, (_cov_index.build_coverage_index(dbits) if self.engine == "cuda" else None)
 
     def coverage_dispatch(self, state, padded_sets, padded_weights):
         """acc (32, padded W) int32 on the device for one padded batch."""
         _guard("coverage")
         fn = _cov.build_coverage_dispatch(self.engine)
-        sets = torch.from_numpy(np.ascontiguousarray(padded_sets, dtype=np.int32)).to(self.device)
-        weights = torch.from_numpy(np.ascontiguousarray(padded_weights, dtype=np.int32)).to(self.device)
-        return fn(state, sets, weights)
+        return fn(*state, padded_sets, padded_weights)
 
     # -- frontier -----------------------------------------------------------
 

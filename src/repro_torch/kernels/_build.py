@@ -27,6 +27,7 @@ SOURCES = {
     "intersect": _PKG / "intersect" / "csrc" / "intersect.cu",
     "coverage": _PKG / "coverage" / "csrc" / "coverage.cu",
     "tiled": _PKG / "intersect" / "csrc" / "tiled.cu",
+    "probe": _PKG / "probe" / "csrc" / "rates.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

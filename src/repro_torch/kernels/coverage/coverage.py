@@ -1,7 +1,11 @@
-"""Wrapper of the hand-written CUDA coverage kernel (``csrc/coverage.cu``),
-which replaces the Pallas ``coverage_accumulate_indexed``.
+"""Wrappers of the hand-written CUDA coverage kernels (``csrc/coverage.cu``),
+which replace the Pallas ``coverage_accumulate_indexed``: the scanning
+kernel, which reads every word of every set, and the anchored kernel, which
+walks only the nonzero words of each set's rarest member through a
+:class:`~.index.CoverageIndex`. Both compute the same function; the
+dispatch (``ops.build_coverage_dispatch``) picks one per batch.
 
-It takes ``(t, W)`` int32 bitset words, ``(M, K)`` int32 itemset indices
+Each takes ``(t, W)`` int32 bitset words, ``(M, K)`` int32 itemset indices
 (short itemsets padded by repeating an item) and ``(M,)`` int32 weights
 (0 on batch padding), and returns ``acc (32, W)`` int32. On its inputs:
 
@@ -25,11 +29,17 @@ import torch
 from .. import _build
 from ..intersect.intersect import _on_cuda
 from . import ref as _ref
+from .index import CoverageIndex
 
-__all__ = ["LAUNCHES", "reset_launches", "coverage_accumulate_indexed"]
+__all__ = [
+    "LAUNCHES",
+    "reset_launches",
+    "coverage_accumulate_indexed",
+    "coverage_accumulate_anchored",
+]
 
-# launches of the kernel since the last reset_launches()
-LAUNCHES: dict[str, int] = {"coverage_accumulate_indexed": 0}
+# launches of each kernel since the last reset_launches()
+LAUNCHES: dict[str, int] = {"coverage_accumulate_indexed": 0, "coverage_accumulate_anchored": 0}
 
 _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -46,6 +56,8 @@ def _lib() -> ctypes.CDLL:
     if lib.coverage_accumulate.argtypes is None:
         lib.coverage_accumulate.argtypes = [_VP, _LL, _LL, _VP, _LL, _INT, _VP, _VP, _VP]
         lib.coverage_accumulate.restype = _INT
+        lib.coverage_anchored.argtypes = [_VP, _LL, _LL, _VP, _VP, _VP, _LL, _INT, _VP, _VP, _LL, _VP]
+        lib.coverage_anchored.restype = _INT
         lib.coverage_error_string.argtypes = [_INT]
         lib.coverage_error_string.restype = ctypes.c_char_p
     return lib
@@ -95,4 +107,53 @@ def coverage_accumulate_indexed(
             f"coverage_accumulate_indexed: launch failed: {lib.coverage_error_string(err).decode()}"
         )
     LAUNCHES["coverage_accumulate_indexed"] += 1
+    return acc
+
+
+def _check_index(bits: torch.Tensor, index: CoverageIndex) -> None:
+    offsets, words = index.offsets, index.words
+    if (offsets.dtype != torch.int64 or tuple(offsets.shape) != (bits.shape[0] + 1,)
+            or not offsets.is_contiguous()):
+        raise ValueError(
+            f"index offsets must be a contiguous ({bits.shape[0] + 1},) int64 tensor, "
+            f"got {offsets.dtype} {tuple(offsets.shape)}"
+        )
+    if words.dtype != torch.int32 or words.dim() != 1 or not words.is_contiguous():
+        raise ValueError(
+            f"index words must be a contiguous 1-D int32 tensor, got {words.dtype} {tuple(words.shape)}"
+        )
+
+
+def coverage_accumulate_anchored(
+    bits: torch.Tensor, index: CoverageIndex, sets: torch.Tensor, weights: torch.Tensor,
+    max_anchor_words: int,
+) -> torch.Tensor:
+    """The same acc (32, W) int32 as :func:`coverage_accumulate_indexed`,
+    walking only the nonzero words of each live set's anchor (its member
+    with the fewest in ``index``, the index of ``bits``).
+
+    ``max_anchor_words``, the most nonzero words of a live set's anchor
+    (:func:`~.index.anchored_plan` reads it from the host counts), sizes
+    the split of long anchor lists over warps; every value gives the same
+    result."""
+    _check(bits, sets, weights)
+    _check_index(bits, index)
+    if not _on_cuda(bits, sets, weights, index.offsets, index.words):
+        return _ref.coverage_accumulate_anchored_ref(bits, index, sets, weights)
+    (t, w), (m, k) = bits.shape, sets.shape
+    acc = torch.empty((32, w), dtype=torch.int32, device=bits.device)
+    if m == 0 or w == 0:
+        return acc.zero_()
+    lib = _lib()
+    with torch.cuda.device(bits.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.coverage_anchored(
+            bits.data_ptr(), t, w, index.offsets.data_ptr(), index.words.data_ptr(), sets.data_ptr(),
+            m, k, weights.data_ptr(), acc.data_ptr(), max(1, int(max_anchor_words)), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"coverage_accumulate_anchored: launch failed: {lib.coverage_error_string(err).decode()}"
+        )
+    LAUNCHES["coverage_accumulate_anchored"] += 1
     return acc

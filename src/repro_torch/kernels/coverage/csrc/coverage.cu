@@ -32,8 +32,34 @@
 // Bound. Sparse batches (mined QIs) re-read the same frequent item rows, so
 // they run from L2; the bytes that must move are the distinct rows read
 // once plus the 32 x W output, and the operations 2K per (set, word) plus
-// ~96 per nonzero (set, word) AND. Neither bounds this simple kernel at the
-// path's shapes; see PERF.md for its measured share.
+// 3 per set bit of the ANDs. This scan does M * W loads whatever the data,
+// so on a batch of mined QIs, whose ANDs are almost all zero, it reaches ~1%
+// of that bound; and it spends 32 bit-plane adds on every nonzero AND
+// (~96 operations) where a random one has ~4 set bits, so a dense batch
+// reaches under a tenth of it.
+//
+// The anchored kernel (coverage_anchored_kernel, below) computes the same
+// accumulator from a per-item index of nonzero words (offsets (t + 1,)
+// int64, words (nnz,) int32, ascending per item). A set's AND is zero
+// wherever its rarest member's word is, so each set walks only the nonzero
+// words of its anchor, the member with the fewest (the first on ties):
+// * one warp per set, grid-striding over the sets, skipping weight-0 sets;
+//   its lanes stride the anchor's word list. A list can be up to W words
+//   long, so gridDim.y cuts every list into that many slices (a multiple of
+//   32 words each), sized by the caller from the longest anchor in the
+//   batch: no warp walks a long list while the others idle;
+// * per word, the members' words are ANDed, stopping at the first zero;
+// * each set bit b of the AND adds the weight at acc[b, w] with atomicAdd,
+//   into the output zeroed on the stream: wrapping unsigned addition
+//   commutes, so every order gives the reference's int32 bits.
+// Its work is 2K loads and ANDs per (set, anchor word) and three
+// operations and one atomic per set bit, far below the scan's on a sparse
+// batch; launch and the output's memset bound it there. On a dense batch
+// (random rows, or anchors with about as many nonzero words as W) every
+// word has ~16 set bits and the atomics cost more than the scan's 32
+// register sums, so the dispatch keeps the scan for a batch whose anchors
+// have more than W / 8 nonzero words per live set on average (the host
+// engine's rule).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -101,6 +127,55 @@ coverage_kernel(const uint32_t* __restrict__ bits, int64_t t, int64_t W,
   }
 }
 
+constexpr int kAnchorWarps = 8;      // warps per CTA of the anchored kernel
+constexpr int kSliceWords = 256;     // anchor words a warp walks, at most, per slice
+constexpr int kMaxCtasPerSm = 8;
+
+__global__ void __launch_bounds__(kAnchorWarps * 32)
+coverage_anchored_kernel(const uint32_t* __restrict__ bits, int64_t t, int64_t W,
+                         const int64_t* __restrict__ offsets, const int32_t* __restrict__ words,
+                         const int32_t* __restrict__ sets, const int32_t* __restrict__ weights,
+                         int64_t M, int K, uint32_t* __restrict__ acc_out) {
+  const int lane = threadIdx.x % 32;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kAnchorWarps;
+  const int64_t slice = blockIdx.y;
+  const int64_t n_slices = gridDim.y;
+  for (int64_t m = static_cast<int64_t>(blockIdx.x) * kAnchorWarps + threadIdx.x / 32; m < M;
+       m += warps) {
+    const uint32_t wt = static_cast<uint32_t>(__ldg(weights + m));
+    if (wt == 0u) continue;  // warp-uniform
+    const int32_t* idx = sets + m * K;
+    int64_t anchor = -1, lo = 0, n = 0;
+    for (int k = 0; k < K; ++k) {
+      const int64_t item = __ldg(idx + k);
+      if (item < 0 || item >= t) __trap();  // a bad index is a caller bug
+      const int64_t begin = __ldg(offsets + item);
+      const int64_t count = __ldg(offsets + item + 1) - begin;
+      if (anchor < 0 || count < n) {
+        anchor = item;
+        lo = begin;
+        n = count;
+      }
+    }
+    // this warp's slice of the anchor's list, a multiple of 32 words long
+    const int64_t per = ((n + n_slices - 1) / n_slices + 31) / 32 * 32;
+    const int64_t end = min(n, (slice + 1) * per);
+    for (int64_t i = slice * per + lane; i < end; i += 32) {
+      const int64_t w = __ldg(words + lo + i);
+      uint32_t x = __ldg(bits + anchor * W + w);
+      for (int k = 0; k < K && x != 0u; ++k) {
+        const int64_t item = __ldg(idx + k);
+        if (item != anchor) x &= __ldg(bits + item * W + w);
+      }
+      while (x != 0u) {
+        const int b = __ffs(x) - 1;
+        atomicAdd(acc_out + b * W + w, wt);
+        x &= x - 1u;
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -128,6 +203,39 @@ int coverage_accumulate(const void* bits, long long t, long long W, const void* 
   const dim3 grid(static_cast<unsigned>(blocks_x), static_cast<unsigned>(chunks));
   coverage_kernel<<<grid, kThreads, 0, s>>>(
       static_cast<const uint32_t*>(bits), t, W, static_cast<const int32_t*>(sets),
+      static_cast<const int32_t*>(weights), M, K, static_cast<uint32_t*>(acc));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Zero acc (32, W) and launch the anchored kernel on `stream`; returns the
+// first CUDA error (0 = accepted). bits (t, W) uint32 words, offsets (t + 1,)
+// int64 and words (nnz,) int32 its index of nonzero words, sets (M, K)
+// int32, weights (M,) int32, all contiguous on the current device. M >= 1,
+// K >= 1: the caller skips empty batches. max_anchor_words (the most
+// nonzero words of a live set's anchor) sizes the slices; any value gives
+// the same result.
+int coverage_anchored(const void* bits, long long t, long long W, const void* offsets,
+                      const void* words, const void* sets, long long M, int K, const void* weights,
+                      void* acc, long long max_anchor_words, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(acc, 0, static_cast<size_t>(32) * W * sizeof(uint32_t), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0;
+  int sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  long long slices = (max_anchor_words + kSliceWords - 1) / kSliceWords;
+  slices = slices < 1 ? 1 : slices > 65535 ? 65535 : slices;
+  // a warp per set, up to one full wave of CTAs over all the slices
+  long long blocks = (M + kAnchorWarps - 1) / kAnchorWarps;
+  const long long wave = (static_cast<long long>(kMaxCtasPerSm) * sms + slices - 1) / slices;
+  blocks = blocks > wave ? wave : blocks;
+  blocks = blocks < 1 ? 1 : blocks;
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(slices));
+  coverage_anchored_kernel<<<grid, kAnchorWarps * 32, 0, s>>>(
+      static_cast<const uint32_t*>(bits), t, W, static_cast<const int64_t*>(offsets),
+      static_cast<const int32_t*>(words), static_cast<const int32_t*>(sets),
       static_cast<const int32_t*>(weights), M, K, static_cast<uint32_t*>(acc));
   return static_cast<int>(cudaGetLastError());
 }

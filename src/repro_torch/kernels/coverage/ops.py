@@ -17,6 +17,7 @@ import torch
 from ...obs import metrics as _om
 from ...obs.trace import span as _obs_span
 from . import coverage as _k
+from .index import CoverageIndex, anchored_plan
 from .ref import acc_to_record_counts, coverage_accumulate_ref
 
 _COV_BATCHES = _om.counter(
@@ -27,14 +28,37 @@ _COV_BATCHES = _om.counter(
 __all__ = ["CoverageEngine", "build_coverage_dispatch"]
 
 
+def _upload(bits: torch.Tensor, sets: np.ndarray, weights: np.ndarray):
+    as_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(bits.device)
+    return as_dev(sets), as_dev(weights)
+
+
+def _torch_dispatch(bits: torch.Tensor, index, sets: np.ndarray, weights: np.ndarray):
+    return coverage_accumulate_ref(bits, *_upload(bits, sets, weights))
+
+
+def _cuda_dispatch(bits: torch.Tensor, index: CoverageIndex, sets: np.ndarray,
+                   weights: np.ndarray):
+    """One batch through the anchored kernel or the scanning one, chosen
+    from the index's host counts (no synchronisation)."""
+    sets_t, weights_t = _upload(bits, sets, weights)
+    anchored, longest = anchored_plan(index.counts, sets, weights, bits.shape[1])
+    if anchored:
+        return _k.coverage_accumulate_anchored(bits, index, sets_t, weights_t, longest)
+    return _k.coverage_accumulate_indexed(bits, sets_t, weights_t)
+
+
 def build_coverage_dispatch(engine: str):
     """The coverage function of a device engine:
-    ``fn(bits, sets, weights) -> acc (32, W) int32`` on the inputs' device —
-    ``torch`` the plain version, ``cuda`` the kernel's wrapper."""
+    ``fn(bits, index, sets, weights) -> acc (32, W) int32`` on the bitsets'
+    device, for host ``(M, K)`` sets and ``(M,)`` weights — ``torch`` the
+    plain scanning version (``index`` unused), ``cuda`` the kernels'
+    wrappers: the anchored kernel where the batch's anchors are sparse
+    (:func:`~.index.anchored_plan`), the scanning kernel otherwise."""
     if engine == "torch":
-        return coverage_accumulate_ref
+        return _torch_dispatch
     if engine == "cuda":
-        return _k.coverage_accumulate_indexed
+        return _cuda_dispatch
     raise ValueError(f"engine must be torch|cuda, got {engine!r}")
 
 

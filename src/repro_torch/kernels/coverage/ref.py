@@ -16,7 +16,10 @@ wrap on overflow, as the reference's int32 sums do.
 
 ``coverage_accumulate_host`` is the numpy ground truth on ``uint32`` words;
 ``coverage_accumulate_ref`` is the same computation in PyTorch on the int32
-word views the device holds, the plain version of the CUDA kernel.
+word views the device holds, the plain version of the scanning CUDA kernel;
+``coverage_accumulate_anchored_ref`` computes it again by walking each set's
+anchor in a :class:`~.index.CoverageIndex`, the plain version of the
+anchored CUDA kernel.
 """
 
 from __future__ import annotations
@@ -25,10 +28,12 @@ import numpy as np
 import torch
 
 from ...core.bitops import popcount_rows
+from .index import ANCHOR_WORK_FACTOR, CoverageIndex, anchors, walk_anchors
 
 __all__ = [
     "coverage_accumulate_host",
     "coverage_accumulate_ref",
+    "coverage_accumulate_anchored_ref",
     "acc_to_record_counts",
 ]
 
@@ -93,7 +98,7 @@ def coverage_accumulate_host(
     anchor_col = np.argmin(set_pc, axis=1)
     anchor_item = sets[np.arange(m), anchor_col]
     total_pairs = int(set_pc[np.arange(m), anchor_col].sum())
-    if total_pairs * 8 > m * n_words:
+    if total_pairs * ANCHOR_WORK_FACTOR > m * n_words:
         mask = bits[sets[:, 0]]  # fancy index -> fresh array, safe as out=
         for t in range(1, width):
             np.bitwise_and(mask, bits[sets[:, t]], out=mask)
@@ -145,8 +150,47 @@ def coverage_accumulate_ref(
     for b in range(32):
         sel = (mask >> b) & 1
         planes.append((sel * wt).sum(dim=0, dtype=torch.int64))
-    acc = torch.stack(planes)
+    return _wrap_int32(torch.stack(planes))
+
+
+def _wrap_int32(acc: torch.Tensor) -> torch.Tensor:
+    """int64 sums -> int32 with the reference's wraparound."""
     return ((acc + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def coverage_accumulate_anchored_ref(
+    bits: torch.Tensor, index: CoverageIndex, sets: torch.Tensor, weights: torch.Tensor,
+    *, chunk_pairs: int = 1 << 20,
+) -> torch.Tensor:
+    """Plain PyTorch version of the anchored coverage kernel: the same acc
+    (32, W) int32 as :func:`coverage_accumulate_ref`, walking only the
+    nonzero words of each live set's anchor, its member with the fewest in
+    ``index`` (the first on ties).
+
+    Every (set, anchor word) pair ANDs the members' words there, and each
+    set bit adds the set's weight at (bit, word), summed in int64 and
+    wrapped to int32. Sets are taken in chunks of about ``chunk_pairs``
+    pairs, so the (pairs, 32) bit temporaries stay bounded.
+    """
+    w = bits.shape[1]
+    acc = torch.zeros(32 * w, dtype=torch.int64, device=bits.device)
+    live = weights != 0
+    idx = sets[live].long()
+    wt = weights[live].long()
+    if idx.shape[0] == 0 or w == 0:
+        return _wrap_int32(acc.view(32, w))
+    anchor = anchors(index, idx)
+    ends = np.cumsum((index.offsets[anchor + 1] - index.offsets[anchor]).cpu().numpy())
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    lo = 0
+    while lo < len(ends):
+        base = ends[lo - 1] if lo else 0
+        hi = max(lo + 1, int(np.searchsorted(ends, base + chunk_pairs, side="right")))
+        walk = walk_anchors(bits, index, idx[lo:hi], anchor[lo:hi])
+        pair, bit = torch.nonzero((walk.x[:, None] >> shifts) & 1, as_tuple=True)
+        acc.index_add_(0, bit * w + walk.word[pair], wt[lo:hi][walk.set_of[pair]])
+        lo = hi
+    return _wrap_int32(acc.view(32, w))
 
 
 def acc_to_record_counts(acc: np.ndarray, n_rows: int) -> np.ndarray:

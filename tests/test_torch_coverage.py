@@ -29,6 +29,7 @@ from repro_torch.kernels.coverage import (
     CoverageEngine,
     acc_to_record_counts,
     build_coverage_dispatch,
+    build_coverage_index,
     coverage_accumulate_host,
     coverage_accumulate_indexed,
     coverage_accumulate_ref,
@@ -221,9 +222,27 @@ def test_device_coverage_dispatch_is_guarded():
         tplacement.set_fault_hook(prev)
 
 
-def test_build_coverage_dispatch_engines():
-    assert build_coverage_dispatch("torch") is coverage_accumulate_ref
-    assert build_coverage_dispatch("cuda") is coverage_accumulate_indexed
+def test_build_coverage_dispatch_engines(monkeypatch):
+    """``torch`` runs the plain scanning version; ``cuda`` runs the
+    anchored kernel's wrapper where the batch's anchors are sparse, the
+    scanning one otherwise; other engines raise."""
+    bits, sets, wt = _case(12, 10, 40, 30, 3)
+    bits[2:, 2:] = 0  # rows 2-9 have two nonzero words of 40
+    tb = _t(bits)
+    want = coverage_accumulate_ref(tb, _t(sets), _t(wt))
+    called = []
+    for name in ("coverage_accumulate_indexed", "coverage_accumulate_anchored"):
+        real = getattr(tops._k, name)
+        monkeypatch.setattr(tops._k, name,
+                            lambda *a, _n=name, _f=real, **kw: called.append(_n) or _f(*a, **kw))
+    assert torch.equal(build_coverage_dispatch("torch")(tb, None, sets, wt), want)
+    assert called == []
+    cuda = build_coverage_dispatch("cuda")
+    index = build_coverage_index(tb)
+    assert torch.equal(cuda(tb, index, sets, wt), want)
+    dense = np.ones((30, 3), dtype=np.int32)  # the all-ones row: every word nonzero
+    assert torch.equal(cuda(tb, index, dense, wt), coverage_accumulate_ref(tb, _t(dense), _t(wt)))
+    assert called == ["coverage_accumulate_anchored", "coverage_accumulate_indexed"]
     with pytest.raises(ValueError):
         build_coverage_dispatch("numpy")
 

@@ -70,6 +70,16 @@ def test_one_tile_of_wide_rows(cuda, bm):
     assert torch.equal(got, intersect_count_tiled_ref(bits, ti, tj, bm))
 
 
+@pytest.mark.parametrize("bm", [2, 5, 8, 16])
+@pytest.mark.parametrize("w", [4, 12, 16, 20, 36, 31252])
+def test_partial_word_chunks_on_the_128_bit_path(cuda, bm, w):
+    """W a multiple of 4 but not of 16: the last 16-word chunk is partly
+    past the row and loads zero words there."""
+    bits, ti, tj = _case([bm + 3, 2 * bm, 1, 3 * bm - 1], bm, w, seed=w + bm, device=cuda)
+    got = intersect_count_tiled(bits, ti, tj, block_rows=bm, block_words=w)
+    assert torch.equal(got, intersect_count_tiled_ref(bits, ti, tj, bm))
+
+
 def test_unaligned_rows_take_the_32_bit_path(cuda):
     """W % 4 == 0 on storage that is not 16-byte aligned."""
     bits, ti, tj = _case([5, 9, 16], 4, 64, seed=3, device=cuda)

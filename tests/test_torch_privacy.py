@@ -165,6 +165,27 @@ def test_planner_torch_engines_verified(engine, seed, n, m, dom, tau, kmax):
         assert got.as_dict(max_suppressions=None) == want.as_dict(max_suppressions=None)
 
 
+# PLAN_CASES and 16 random 100 x 5 tables (domain 5, tau 1, kmax 3)
+PARITY_CASES = PLAN_CASES + [(100 + s, 100, 5, 5, 1, 3) for s in range(16)]
+_REF_PLANS: dict = {}
+
+
+@pytest.mark.parametrize("engine", ["torch", "cuda"])
+@pytest.mark.parametrize("seed,n,m,dom,tau,kmax", PARITY_CASES)
+def test_planner_torch_engines_equal_reference(engine, seed, n, m, dom, tau, kmax):
+    """The torch and cuda engines' plans equal the reference's, with no
+    condition on the first mine's QI order."""
+    D = _rand(seed, n, m, dom)
+    key = (seed, n, m, dom, tau, kmax)
+    if key not in _REF_PLANS:
+        _REF_PLANS[key] = r_plan(D, tau=tau, kmax=kmax)
+    want = _REF_PLANS[key]
+    got = plan_anonymization(D, tau=tau, kmax=kmax, config=KyivConfig(engine=engine, device="cpu"))
+    assert got.as_dict(max_suppressions=None) == want.as_dict(max_suppressions=None)
+    assert got.suppressions == want.suppressions
+    assert np.array_equal(apply_plan(D, got), r_apply_plan(D, want))
+
+
 @pytest.mark.parametrize("engine,device", ENGINES)
 def test_planner_on_exposed_table(engine, device):
     D = synth.exposed_dataset(n=400, seed=0)
