@@ -43,7 +43,26 @@ machine: the kernels build from the sources in the checkout into
    kernel; equal to the host placement's), both kernels must have
    launched; then a verified anonymization plan of the 100,000-row table
    on the card;
-8. coverage-kernel: both coverage kernels (scanning and anchored) against
+8. service: the resident service, ``python -m repro_torch.launch.serve_miner``
+   started with no ``--engine`` (the card), twice at once: both preload the
+   Poker-hand table of phase 3 written to a CSV file (1,000,000 rows, not
+   cut), one of them with ``--profile-dir``. Over HTTP the plain server
+   answers a cold mine (tau=1, kmax=4), then after an append of 10,000 rows
+   a mine past the incremental budget (a cold mine); the profiled one a
+   profiled cold mine, the same mine from the cache, an append of 1,341 rows
+   (the most that stay incremental, ``SERVICE_INCREMENTAL_ROWS``) and the
+   incremental mine, ``/risk`` and ``/report``, an approximate mine served
+   by the exact answer (kmax=4) and one sampled and refined in the
+   background (kmax=2, epsilon=0.3); each answer equal to an in-process
+   mine of the same rows (value sets), the cold mine's stats equal to
+   phase 3's; ``/stats`` with no retried or refused request, warm intersect
+   buckets and the server's own kernel launches (rows 1-4: the fused
+   kernels of the cold mine, the unfused ones of the incremental mine's
+   delta-born count, and a coverage kernel), ``/metrics`` lint-clean, the
+   cold mine's ``torch.profiler`` trace (CUDA activity) naming the
+   intersect kernels (its device busy and idle share and top kernels
+   printed); then SIGTERM, and each server must exit 0;
+9. coverage-kernel: both coverage kernels (scanning and anchored) against
    the plain versions on the card, bit for bit, over widths, set sizes,
    batch sizes, sparse and sign-bit rows and weights that overflow int32
    (640 checks), and against the numpy host engine on small inputs; the
@@ -52,7 +71,10 @@ machine: the kernels build from the sources in the checkout into
    quasi-identifiers of phase 7 (sparse: both kernels) and on random rows
    (dense: the scanning kernel), by CUDA events over back-to-back calls
    and over the replay of a CUDA graph of 20 calls (the device alone);
-9. tiled: the group-tiled count kernel against its plain version on the
+   and the batches the Poker-hand mine's risk profile gives the dispatch
+   (its quasi-identifiers by size, padded as ``CoverageEngine`` pads them:
+   the scanning kernel), timed beside their bound;
+10. tiled: the group-tiled count kernel against its plain version on the
    card, bit for bit, over block sizes, widths and group layouts (T from 1
    to a few thousand block pairs), then its path at full width: the level-3
    frontier of phase 3's table (66,810 rows in 3,066 prefix groups), from
@@ -78,8 +100,9 @@ leaves one popcount per 16 words (the ALU route). The tiled count's 8 x 8
 tiles are also an ``m8n8`` binary product, priced as bit products over the
 faster measured b1 ``mma`` rate (the tensor route); its operations take the
 faster of the two routes. The coverage kernels' operations are counted from
-this run's data: the scan's loads and ANDs per (set, word) and 96 per
-nonzero AND, the anchored walk's per (set, anchor word) and 3 per set bit.
+this run's data: the scan's 2K per (live set, word) for the loads and ANDs
+plus 3 per set bit of the ANDs, the anchored walk's 2K per (live set, anchor
+word) plus 3 per set bit.
 
 It prints a JSON line of per-kernel numbers and, last, the JSON status line.
 Any mismatch, build failure or missing card exits non-zero before that line.
@@ -88,8 +111,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import time
@@ -802,6 +828,341 @@ def phase_privacy(device, poker_res):
     return launches, table_bits, qi3
 
 
+# -- phase service -----------------------------------------------------------
+
+# Rows of ``poker_like(n=10_000, m=10, seed=1)`` appended to the profiled
+# server before its incremental mine: the largest prefix whose delta-born
+# candidates (each appended row's 2- to kmax-item combinations, deduplicated)
+# stay within IncrementalConfig's delta_candidate_budget of 262,144, the
+# reference's; one row more passes it. The unprofiled server takes all
+# 10,000 rows, which pass the budget, so its answer comes from a cold mine.
+SERVICE_INCREMENTAL_ROWS = 1_341
+SERVICE_COLD_APPEND_ROWS = 10_000
+
+
+def _http(port: int, path: str, payload=None, timeout: float = 600.0):
+    """One request to the server; returns (status, JSON body or text)."""
+    import urllib.request
+
+    url = f"http://127.0.0.1:{port}{path}"
+    req = url if payload is None else urllib.request.Request(
+        url, data=json.dumps(payload).encode(), headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        body = resp.read().decode()
+        kind = resp.headers.get("Content-Type", "")
+        return resp.status, (json.loads(body) if kind.startswith("application/json") else body)
+
+
+def _value_sets_json(resp: dict) -> set:
+    """A /mine answer as id-independent value sets."""
+    return {(frozenset((int(c), int(v)) for c, v in s["items"]), int(s["count"]))
+            for s in resp["itemsets"]}
+
+
+def _value_sets(result) -> set:
+    return {(frozenset((int(c), int(v)) for c, v in ids), int(cnt))
+            for ids, cnt in result.as_value_sets()}
+
+
+def _to_codes(rows: np.ndarray, books) -> np.ndarray:
+    """Rows of raw values in the codebook space of ``read_csv`` (each
+    column's sorted distinct strings)."""
+    out = np.empty(rows.shape, dtype=np.int64)
+    for j, book in enumerate(books):
+        vals = rows[:, j].astype(str)
+        out[:, j] = np.searchsorted(book, vals)
+        if not np.array_equal(book[np.minimum(out[:, j], len(book) - 1)], vals):
+            fail(f"service: an appended value of column {j} is not in the CSV's codebook")
+    return out
+
+
+def _trace_summary(path: str) -> dict:
+    """Device busy and idle share of a profiled mine's device window (its
+    first CUDA call to its last device activity; the profiler records CUDA
+    activity only) and the five kernels with the most device time."""
+    events = [e for e in json.loads(Path(path).read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    on_device = ("kernel", "gpu_memcpy", "gpu_memset")
+    window = [e for e in events if e.get("cat") in on_device + ("cuda_runtime", "cuda_driver")]
+    t0 = min(e["ts"] for e in window)
+    t1 = max(e["ts"] + e["dur"] for e in window)
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") in on_device)
+    busy, end = 0.0, t0
+    for a, b in device:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    per_kernel: dict[str, list] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            k = per_kernel.setdefault(e["name"], [0.0, 0])
+            k[0] += e["dur"]
+            k[1] += 1
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:5]
+    span = t1 - t0
+    return {"window_ms": span / 1e3, "device_busy_ms": busy / 1e3,
+            "busy_share": busy / span, "idle_share": 1 - busy / span,
+            "kernels": sorted(per_kernel), "top_kernels": [
+                {"name": n[:120], "ms": v[0] / 1e3, "calls": v[1]} for n, v in top]}
+
+
+def _start_server(port: int, csv_path: Path, log_path: Path, extra: list[str]):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    log = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve_miner", "--port", str(port),
+         "--preload", str(csv_path), *extra],
+        cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    return proc
+
+
+def _wait_ready(label: str, proc, port: int, log_path: Path, t0: float) -> float:
+    while True:
+        if proc.poll() is not None:
+            fail(f"service {label}: the server exited with {proc.returncode} during preload:\n"
+                 + log_path.read_text()[-4000:])
+        try:
+            if _http(port, "/readyz", timeout=5)[1].get("ready"):
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        if time.perf_counter() - t0 > 300:
+            fail(f"service {label}: the server was not ready within 300 s")
+        time.sleep(0.25)
+
+
+def _stop_server(label: str, proc, log_path: Path) -> None:
+    """SIGTERM drains the server, which must exit 0."""
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        fail(f"service {label}: the server did not stop within 60 s of SIGTERM")
+    if rc != 0:
+        fail(f"service {label}: the server exited with {rc}:\n" + log_path.read_text()[-4000:])
+
+
+def _no_refusal(label: str, stats: dict) -> None:
+    res = stats["resilience"]
+    if res["unavailable_mines"] or res["state"] != "closed" or res["device_retries"]:
+        fail(f"service {label}: a request was retried or refused: {res}")
+    if stats["placement"].get("engine") != "cuda" or stats["placement"].get("backend") != "cuda":
+        fail(f"service {label}: the server did not place on the card: {stats['placement']}")
+
+
+def phase_service(device, poker_res):
+    """The resident service end to end: two ``python -m
+    repro_torch.launch.serve_miner`` servers (no ``--engine``: the card)
+    preload the Poker-hand 1M table from one CSV file at once. The plain
+    one answers a cold mine, then after an append of 10,000 rows a mine
+    that passes the incremental budget and comes from a cold mine. The one
+    with ``--profile-dir`` answers a profiled cold mine, the same mine from
+    its cache, an append of 1,341 rows and the incremental mine, ``/risk``
+    and ``/report``, an approximate mine served by the exact answer and one
+    sampled and refined in the background, then ``/stats``, ``/metrics`` and
+    the cold mine's profile trace. Every answer is held against an
+    in-process mine of the same rows. Returns the profiled server's kernel
+    launches over its run (from ``/stats``)."""
+    import tempfile
+    import threading
+
+    from repro_torch.core import KyivConfig, prepare
+    from repro_torch.core.kyiv import mine_preprocessed
+    from repro_torch.data.loaders import read_csv
+    from repro_torch.data.synth import poker_like
+    from repro_torch.obs.metrics import lint_exposition
+    from repro_torch.privacy import risk_profile
+    from repro_torch.sdc.quasi import QuasiIdentifierReport, report_as_dict
+
+    dev = str(device)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_service_", dir=ROOT / "build"))
+    csv_path, prof_dir = tmp / "poker.csv", tmp / "profile"
+    logs = {"plain": tmp / "plain.log", "profiled": tmp / "profiled.log"}
+    wall = {}
+    t0 = time.perf_counter()
+    np.savetxt(csv_path, poker_like(n=1_000_000, m=10, seed=0), fmt="%d", delimiter=",")
+    wall["write_csv_s"] = time.perf_counter() - t0
+    ports = {}
+    for label in logs:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            ports[label] = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = {"plain": _start_server(ports["plain"], csv_path, logs["plain"], []),
+             "profiled": _start_server(ports["profiled"], csv_path, logs["profiled"],
+                                       ["--profile-dir", str(prof_dir)])}
+    try:
+        # the in-process reference reads the same file while the servers preload
+        loaded = {}
+        reader = threading.Thread(target=lambda: loaded.setdefault("csv", read_csv(str(csv_path))))
+        reader.start()
+        for label, proc in procs.items():
+            wall[f"preload_{label}_s"] = _wait_ready(label, proc, ports[label], logs[label], t0)
+        print(f"  service: servers ready after {wall['preload_plain_s']:.2f} s (plain) and "
+              f"{wall['preload_profiled_s']:.2f} s (profiled), preloading {csv_path.name} "
+              "(1,000,000 rows) at once", flush=True)
+        reader.join()
+        table, _names, books = loaded["csv"]
+        extra = _to_codes(poker_like(n=SERVICE_COLD_APPEND_ROWS, m=10, seed=1), books)
+
+        requests = []
+
+        def ask(label, server, path, payload=None):
+            t = time.perf_counter()
+            code, body = _http(ports[server], path, payload)
+            dt = time.perf_counter() - t
+            if code != 200:
+                fail(f"service {label}: HTTP {code}: {body}")
+            source = body.get("source") if isinstance(body, dict) else None
+            requests.append({"request": label, "server": server, "path": path, "wall_s": dt,
+                             "source": source, "server_latency_s":
+                             body.get("latency_s") if isinstance(body, dict) else None})
+            print(f"  service {label} ({server}): {dt:.4f} s source={source}", flush=True)
+            return body
+
+        cfg = KyivConfig(tau=1, kmax=4, engine="cuda", device=dev)
+
+        def in_process(rows):
+            prep = prepare(rows, cfg)
+            t = time.perf_counter()
+            res = mine_preprocessed(prep, cfg)
+            torch.cuda.synchronize()
+            return prep, res, time.perf_counter() - t
+
+        # the plain server: a cold mine, then 10,000 appended rows, past the
+        # incremental budget, answered by a cold mine
+        cold = ask("cold", "plain", "/mine?tau=1&kmax=4")
+        _, want, wall["inprocess_cold_s"] = in_process(table)
+        if cold["source"] != "cold" or _value_sets_json(cold) != _value_sets(want):
+            fail(f"service cold: source {cold['source']}, {cold['n_itemsets']} itemsets against "
+                 f"{len(want.itemsets)} in-process")
+        if list(map(stat_tuple, want.stats)) != list(map(stat_tuple, poker_res.stats)):
+            fail("service: the mine of the CSV table differs in its stats from phase main's")
+        app = ask(f"append {SERVICE_COLD_APPEND_ROWS}", "plain", "/append", {"rows": extra.tolist()})
+        if app["n_rows"] != 1_000_000 + SERVICE_COLD_APPEND_ROWS:
+            fail(f"service append: {app}")
+        over = ask("mine past the budget", "plain", "/mine?tau=1&kmax=4")
+        _, want_over, _ = in_process(np.concatenate([table, extra]))
+        if over["source"] != "cold" or _value_sets_json(over) != _value_sets(want_over):
+            fail(f"service mine past the budget: source {over['source']}, {over['n_itemsets']} "
+                 f"itemsets against {len(want_over.itemsets)} of an in-process mine")
+        _no_refusal("plain", ask("stats", "plain", "/stats"))
+        _stop_server("plain", procs["plain"], logs["plain"])
+
+        # the profiled server: cold (profiled), cached
+        pcold = ask("cold, profiled", "profiled", "/mine?tau=1&kmax=4")
+        if pcold["source"] != "cold" or _value_sets_json(pcold) != _value_sets(want):
+            fail(f"service cold, profiled: source {pcold['source']}")
+        if pcold["info"].get("profile_error"):
+            fail(f"service: the profiler failed: {pcold['info']['profile_error']}")
+        warm = ask("cache", "profiled", "/mine?tau=1&kmax=4")
+        if warm["source"] != "cache" or _value_sets_json(warm) != _value_sets(want):
+            fail(f"service cache: source {warm['source']}")
+
+        # append, then the incremental mine against a cold one of all rows
+        part = extra[:SERVICE_INCREMENTAL_ROWS]
+        app = ask(f"append {SERVICE_INCREMENTAL_ROWS}", "profiled", "/append", {"rows": part.tolist()})
+        if app["n_rows"] != 1_000_000 + SERVICE_INCREMENTAL_ROWS:
+            fail(f"service append: {app}")
+        inc = ask("incremental", "profiled", "/mine?tau=1&kmax=4")
+        prep, cold_all, _ = in_process(np.concatenate([table, part]))
+        if inc["source"] != "incremental" or _value_sets_json(inc) != _value_sets(cold_all):
+            fail(f"service incremental: source {inc['source']}, {inc['n_itemsets']} itemsets "
+                 f"against {len(cold_all.itemsets)} of a cold mine")
+
+        # risk and report through the coverage kernels, against in-process
+        drop = ("version", "source", "latency_s", "trace_id")
+        risk = ask("risk", "profiled", "/risk?tau=1&kmax=4")
+        profile = risk_profile(cold_all)
+        if {k: v for k, v in risk.items() if k not in drop} != json.loads(json.dumps(profile.summary())):
+            fail("service risk: differs from the in-process risk profile")
+        rep = ask("report", "profiled", "/report?tau=1&kmax=4")
+        want_rep = report_as_dict(QuasiIdentifierReport(result=cold_all, tau=1, kmax=4, _profile=profile))
+        if {k: v for k, v in rep.items() if k not in drop} != json.loads(json.dumps(want_rep)):
+            fail("service report: differs from the in-process report")
+
+        # approximate: at kmax=4 the exact answer of this version serves;
+        # at kmax=2 the sample is mined and refined in the background
+        ap = ask("approx kmax=4", "profiled", "/mine?mode=approx&epsilon=0.1&tau=1&kmax=4")
+        if not ap["info"].get("refined") or _value_sets_json(ap) != _value_sets(cold_all):
+            fail(f"service approx kmax=4: {ap['info']}")
+        sampled = ask("approx kmax=2", "profiled", "/mine?mode=approx&epsilon=0.3&tau=1&kmax=2")
+        if sampled["source"] != "approx" or sampled["info"]["refined"]:
+            fail(f"service approx kmax=2: expected a sampled answer, got {sampled['info']}")
+        t = time.perf_counter()
+        while True:
+            refined = _http(ports["profiled"], "/mine?mode=approx&epsilon=0.3&tau=1&kmax=2")[1]
+            if refined["info"].get("refined") is True:
+                break
+            if time.perf_counter() - t > 300:
+                fail("service approx kmax=2: not refined within 300 s")
+            time.sleep(0.1)
+        wall["refine_wait_s"] = time.perf_counter() - t
+        exact2 = mine_preprocessed(prep, dataclasses.replace(cfg, kmax=2))
+        if _value_sets_json(refined) != _value_sets(exact2):
+            fail("service approx kmax=2: the refined answer differs from the exact mine")
+        print(f"  service approx kmax=2: sample_rows={sampled['info']['sample_rows']} "
+              f"boundary={sampled['info']['boundary_count']} refined after {wall['refine_wait_s']:.3f} s "
+              f"({refined['n_itemsets']} itemsets)", flush=True)
+        del prep
+
+        # stats, metrics, the trace
+        stats = ask("stats", "profiled", "/stats")
+        _no_refusal("profiled", stats)
+        ex = stats["executables"]["families"]
+        if ex.get("intersect", {}).get("hits", 0) <= 0:
+            fail(f"service: no warm intersect buckets: {ex}")
+        launches = stats["launches"]
+        missing = [k for k in ("intersect_classify_write_indexed", "intersect_classify_count_indexed",
+                               "intersect_write_indexed", "intersect_count_indexed")
+                   if launches["intersect"][k] == 0]
+        if missing or not sum(launches["coverage"].values()):
+            fail(f"service: the server never launched {missing or 'a coverage kernel'}: {launches}")
+        code, text = _http(ports["profiled"], "/metrics")
+        problems = lint_exposition(text)
+        if problems:
+            fail(f"service /metrics: {problems[:5]}")
+        batches = re.search(r"^repro_coverage_batches_total (\S+)", text, re.M)
+        if not batches or float(batches.group(1)) <= 0:
+            fail("service /metrics: repro_coverage_batches_total did not count the risk batches")
+        trace_path = pcold["info"].get("profile_trace")
+        if not trace_path or not Path(trace_path).is_file() or Path(trace_path).parent != prof_dir:
+            fail(f"service: no profile trace of the cold mine ({trace_path})")
+        trace = _trace_summary(trace_path)
+        if not any("intersect_indexed_kernel" in k for k in trace["kernels"]):
+            fail(f"service: the trace names no intersect kernel: {trace['kernels'][:10]}")
+        print("  service trace (profiled cold mine, CUDA activity): " + json.dumps(
+            {"profile_s": pcold["info"].get("profile_s"),
+             **{k: v for k, v in trace.items() if k != "kernels"}}), flush=True)
+        _stop_server("profiled", procs["profiled"], logs["profiled"])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    shutil.rmtree(tmp, ignore_errors=True)
+    print("phase service: ok " + json.dumps({
+        "dataset": "poker_like(n=1000000, m=10, seed=0) via CSV",
+        "appended_rows": {"incremental": SERVICE_INCREMENTAL_ROWS, "cold": SERVICE_COLD_APPEND_ROWS},
+        "requests": requests, "qis": cold["n_itemsets"], "qis_after_append": inc["n_itemsets"],
+        "cold_info": {k: cold["info"].get(k) for k in ("prepare_s",)},
+        "profiled_cold_info": {k: pcold["info"].get(k) for k in ("prepare_s", "profile_s")},
+        "incremental_info": {k: v for k, v in inc["info"].items() if k != "cost"},
+        "past_budget_info": {k: over["info"].get(k) for k in ("prepare_s", "n_rows")},
+        "sampled": {k: sampled["info"][k] for k in ("sample_rows", "tau_sample", "boundary_count",
+                                                      "confidence")},
+        "launches": {k: v for fam in launches.values() for k, v in fam.items() if v},
+        "executables": stats["executables"], "trace": {k: v for k, v in trace.items() if k != "kernels"},
+        **wall,
+    }), flush=True)
+    return launches
+
+
+# -- phase coverage-kernel -------------------------------------------------
+
+
 def _coverage_inputs(t, n_words, m, k, seed, weights, device, pad=True, sparse=False):
     """(t, n_words) random words, uploaded as the placement uploads them
     (``pad``: word axis padded to a multiple of 4) or as they are, with an
@@ -968,14 +1329,17 @@ def _coverage_sweep(device) -> tuple[int, int]:
     return checks, err
 
 
-def phase_coverage_kernel(device, table_bits, qi3, rates):
+def phase_coverage_kernel(device, table_bits, qi3, rates, poker_res):
     """Both coverage kernels against the plain versions over the sweep,
     then timed at the privacy path's batch: the table's padded width, K = 3
     and the bucket of a full batch (W = 15,628 and M = 8,192, the bucket of
     4,294 sets, for 500,000 rows). On the sparse batch of real QIs both
     kernels run (the dispatch picks the anchored one); on the dense batch of
     random rows the scanning one (the dispatch's pick). The index of the
-    table is built and timed here."""
+    table is built and timed here. Last, the batches the main path really
+    gives the dispatch on the Poker-hand table: phase 3's quasi-identifiers
+    by size, padded as ``CoverageEngine`` pads them (edge rows of weight 0
+    up to the bucket), each timed with the kernel the dispatch picks."""
     from repro_torch.core.bitops import device_bits, padded_words
     from repro_torch.kernels.coverage import anchored_plan, build_coverage_index
     from repro_torch.kernels.intersect import next_bucket
@@ -1021,6 +1385,7 @@ def phase_coverage_kernel(device, table_bits, qi3, rates):
         fail(f"coverage timing: W={bits.shape[1]}, expected {w_pad}")
     del bits, sets
     torch.cuda.empty_cache()
+    poker = _poker_profile_batches(device, poker_res, rates)
     print("phase coverage-kernel: ok " + json.dumps({
         "checks": checks, "max_abs_err": err, "batch_cap": cap, "index": index_info,
         "sparse": {"inputs": f"the first {cap} size-3 QIs of the exposed table, "
@@ -1028,8 +1393,39 @@ def phase_coverage_kernel(device, table_bits, qi3, rates):
                    "scan_over_anchored": sparse_scan["graph_ms"] / sparse["graph_ms"],
                    "scan_over_anchored_calls": sparse_scan["kernel_ms"] / sparse["kernel_ms"]},
         "dense": {"inputs": "512 random rows, random sets, weight 1", **dense},
+        "poker": poker,
     }), flush=True)
-    return {"max_abs_err": err, "sparse": sparse, "sparse_scan": sparse_scan, "dense": dense}
+    return {"max_abs_err": err, "sparse": sparse, "sparse_scan": sparse_scan, "dense": dense,
+            "poker": poker}
+
+
+def _poker_profile_batches(device, poker_res, rates) -> list[dict]:
+    """The Poker-hand mine's risk-profile batches (its QIs grouped by size,
+    padded to the bucket with edge rows of weight 0), each held against the
+    plain versions and timed with the kernel the dispatch picks for it."""
+    from repro_torch.core.bitops import device_bits
+    from repro_torch.kernels.coverage import anchored_plan, build_coverage_index
+    from repro_torch.kernels.intersect import next_bucket
+
+    bits = device_bits(poker_res.prep.table.bits, device)
+    index = build_coverage_index(bits)
+    by_size: dict[int, list] = {}
+    for ids, _ in poker_res.itemsets:
+        by_size.setdefault(len(ids), []).append(ids)
+    out = []
+    for k, sets in sorted(by_size.items()):
+        m = len(sets)
+        bucket = next_bucket(m)
+        chunk = np.pad(np.asarray(sets, dtype=np.int32), ((0, bucket - m), (0, 0)), mode="edge")
+        wchunk = np.pad(np.ones(m, dtype=np.int32), (0, bucket - m))
+        anchored = anchored_plan(index.counts, chunk, wchunk, bits.shape[1])[0]
+        sets_d, wt_d = torch.from_numpy(chunk).to(device), torch.from_numpy(wchunk).to(device)
+        idx = index if anchored else None
+        bound = _coverage_bound(bits, sets_d, wt_d, rates, idx)
+        out.append({"K": k, "qis": m, **_time_coverage(f"poker K={k}", bits, sets_d, wt_d, bound, idx)})
+    del bits, index
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- phase 9 -----------------------------------------------------------------
@@ -1241,7 +1637,9 @@ def main() -> None:
     phase_checkpoint(device)
     cov_launches, table_bits, qi3 = phase_privacy(device, poker_res)
     launches.update(cov_launches)
-    cov = phase_coverage_kernel(device, table_bits, qi3, rates)
+    torch.cuda.empty_cache()
+    phase_service(device, poker_res)
+    cov = phase_coverage_kernel(device, table_bits, qi3, rates, poker_res)
     del table_bits, qi3, poker_res
     tiled = phase_tiled(device, poker_prep, rates)
     del poker_prep
@@ -1269,6 +1667,8 @@ def main() -> None:
         "bound_ms": d["bound_ms"], "bound_by": d["bound_by"], "library_ms": None,
         "sparse_ms": sp["graph_ms"], "sparse_plain_ms": sp["plain_ms"],
         "sparse_bound_ms": sp["bound_ms"], "sparse_bound_by": sp["bound_by"],
+        **{f"poker_k{b['K']}_{key}": b[src] for b in cov["poker"] if b["kernel"] == COVERAGE
+           for key, src in (("ms", "graph_ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"))},
     })
     a = cov["sparse"]
     kernels.append({

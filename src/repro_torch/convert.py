@@ -1,5 +1,5 @@
-"""Carry mining state across packages: a level-boundary ``MiningState`` in
-plain numpy form, and back.
+"""Carry state across packages: a level-boundary ``MiningState`` and the
+resident service's ``DatasetStore``, each in plain numpy form, and back.
 
 The numpy form is a dict::
 
@@ -14,6 +14,12 @@ The numpy form is a dict::
 reference package's or this one's — so a run checkpointed by the reference
 miner resumes here (``mine_preprocessed(..., resume_state=state_from_numpy(d))``)
 and both compute the same thing.
+
+A store's numpy form is its ``export_state()`` dict (ints and numpy arrays:
+watermarks, item metadata and the ``(n_items, n_words)`` uint32 bitsets), the
+same in both packages: :func:`store_from_numpy` rebuilds this package's
+``DatasetStore`` from the reference's export unchanged, so a table appended
+in the reference service answers ``/mine`` here identically.
 """
 
 from __future__ import annotations
@@ -26,8 +32,9 @@ from .core.bitops import host_bits
 from .core.kyiv import LevelStats, MiningState
 from .core.prefix import Level
 from .core.support import ItemsetIndex
+from .service.store import DatasetStore
 
-__all__ = ["state_to_numpy", "state_from_numpy"]
+__all__ = ["state_to_numpy", "state_from_numpy", "store_to_numpy", "store_from_numpy"]
 
 _STAT_FIELDS = tuple(f.name for f in dataclasses.fields(LevelStats))
 
@@ -74,3 +81,17 @@ def state_from_numpy(d: dict) -> MiningState:
         else ItemsetIndex(np.asarray(gp["itemsets"]), np.asarray(gp["counts"], dtype=np.int64)),
         next_k=int(d["next_k"]),
     )
+
+
+def store_to_numpy(store) -> dict:
+    """Plain numpy form of a ``DatasetStore`` (of either package): its
+    ``export_state()``, arrays copied."""
+    return {k: (np.array(v) if isinstance(v, np.ndarray) else v)
+            for k, v in store.export_state().items()}
+
+
+def store_from_numpy(d: dict, *, placement=None, **kw):
+    """This package's ``DatasetStore`` from the numpy form; ``placement``
+    (and ``compact_threshold`` / ``keep_versions``) as for
+    ``DatasetStore.from_state``."""
+    return DatasetStore.from_state(d, placement=placement, **kw)

@@ -7,8 +7,15 @@ package is still initialising.
 """
 
 from .bitops import popcount_rows
+from . import exec_cache
 from .items import ItemTable, bits_popcount, bits_to_rows, itemize, pack_rows_to_bits
-from .placement import DevicePlacement, HostPlacement, make_placement, resolve_placement
+from .placement import (
+    DevicePlacement,
+    HostPlacement,
+    is_device_failure,
+    make_placement,
+    resolve_placement,
+)
 from .preprocess import ORDERINGS, Preprocessed, preprocess
 from .prefix import (
     CandidateBatch,
@@ -37,6 +44,7 @@ from .oracle import brute_force_minimal_infrequent
 
 __all__ = [
     "popcount_rows",
+    "exec_cache",
     "ItemTable",
     "itemize",
     "pack_rows_to_bits",
@@ -44,6 +52,7 @@ __all__ = [
     "bits_to_rows",
     "HostPlacement",
     "DevicePlacement",
+    "is_device_failure",
     "make_placement",
     "resolve_placement",
     "Preprocessed",

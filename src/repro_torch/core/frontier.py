@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..kernels.intersect.ref import CLASS_EMIT, CLASS_STORE
+from ..obs import cost as _obs_cost
 from ..obs import metrics as _om
 from ..obs.trace import device_sync as _obs_device_sync
 from ..obs.trace import span as _obs_span
@@ -83,8 +84,20 @@ _LEVELS_TOTAL = _om.counter(
 )
 
 
-def _record_level(ls, path: str, sp) -> None:
-    """Fold one finished level's stats into the registry and its span."""
+def _record_level(ls, path: str, sp, n_rows: int = 0) -> None:
+    """Fold one finished level's stats into the registry, its span, and the
+    request's CostEnvelope (no-op without one attached)."""
+    env = _obs_cost.current()
+    if env is not None:
+        env.add(
+            levels=1,
+            candidate_pairs=ls.candidates,
+            rows_scanned=ls.intersections * n_rows,
+            device_bytes=ls.level_bytes if path == "device" else 0,
+            itemsets_emitted=ls.emitted,
+        )
+        if path == "device":
+            env.add_device_time(ls.time_intersect)
     _LEVEL_SECONDS.observe(ls.time_candidates, stage="candidates")
     _LEVEL_SECONDS.observe(ls.time_intersect, stage="intersect")
     _LEVEL_SECONDS.observe(ls.time_classify, stage="classify")
@@ -319,7 +332,7 @@ def mine_levels(
 
             ls.time_total = time.perf_counter() - lt0
             stats.append(ls)
-            _record_level(ls, "device" if device_path else "host", _lsp)
+            _record_level(ls, "device" if device_path else "host", _lsp, n)
 
             # eager retirement: the parent level's pipeline residency,
             # frontier tables and parent bitsets all drop now — device

@@ -330,14 +330,19 @@ def mine_preprocessed(
     prep: Preprocessed,
     config: KyivConfig,
     *,
+    pipeline_factory: Callable[..., Any] | None = None,
     on_level_end: Callable[[int, "MiningState"], None] | None = None,
     resume_state: "MiningState | dict[str, Any] | None" = None,
     control: RunControl | None = None,
 ) -> MiningResult:
     """Run Algorithm 1 on a preprocessed item table.
 
-    ``on_level_end`` receives a :class:`MiningState` at every level boundary
-    (the checkpoint hook); ``resume_state`` (a ``MiningState`` or the
+    ``pipeline_factory(bits, parent_counts, tau)`` builds the per-level batch
+    pipeline (the resident service supplies one whose level 1 gathers from
+    its store's device-resident bitsets); by default each level gets a
+    :class:`~repro_torch.kernels.intersect.ops.LevelPipeline` on the
+    config's placement. ``on_level_end`` receives a :class:`MiningState` at
+    every level boundary (the checkpoint hook); ``resume_state`` (a ``MiningState`` or the
     equivalent mapping from an old checkpoint) restarts there. ``control``
     carries a per-request deadline/cancellation checked at every batch
     boundary — an interrupted run returns the partial result with
@@ -354,6 +359,7 @@ def mine_preprocessed(
             result = _mine_preprocessed_inner(
                 prep,
                 config,
+                pipeline_factory=pipeline_factory,
                 on_level_end=on_level_end,
                 resume_state=resume_state,
                 control=control,
@@ -380,6 +386,7 @@ def _mine_preprocessed_inner(
     prep: Preprocessed,
     config: KyivConfig,
     *,
+    pipeline_factory: Callable[..., Any] | None = None,
     on_level_end: Callable[[int, "MiningState"], None] | None = None,
     resume_state: "MiningState | dict[str, Any] | None" = None,
     control: RunControl | None = None,
@@ -389,7 +396,7 @@ def _mine_preprocessed_inner(
     n_words = prep.l_bits.shape[1]
     placement = resolve_placement(config)
 
-    def make_pipeline(bits, counts, tau_):
+    def default_pipeline(bits, counts, tau_):
         return LevelPipeline(
             bits,
             counts,
@@ -399,6 +406,8 @@ def _mine_preprocessed_inner(
             locality_sort=config.locality_sort,
             n_words=n_words,
         )
+
+    make_pipeline = pipeline_factory or default_pipeline
 
     results: list[tuple[tuple[int, ...], int]] = []
     stats: list[LevelStats] = []

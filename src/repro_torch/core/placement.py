@@ -14,7 +14,14 @@ the level loop (``core.frontier``):
 4. **retirement** — dropping what :meth:`prepare` uploaded (:meth:`release`);
 5. **coverage** — the item bitsets of a record-risk query made resident once
    (:meth:`prepare_coverage`) and one padded itemset batch accumulated
-   (:meth:`coverage_dispatch`, ``kernels.coverage``).
+   (:meth:`coverage_dispatch`, ``kernels.coverage``);
+6. **layout** — a long-lived bitset matrix (the service's ``DatasetStore``)
+   placed once per version (:meth:`put_bits`), and the word-count multiple
+   stored matrices keep (``store_word_tile``).
+
+Device dispatches bind their callables once per bucket through the
+process-wide executable cache (``core.exec_cache``; one family per kernel
+package), so ``/stats`` can show warm versus cold buckets.
 
 Implementations:
 
@@ -27,11 +34,14 @@ Implementations:
   axis padded with zero words to a multiple of 4 (16-byte rows for the
   kernels' 128-bit loads); every batch then ships only its pair list.
 
-``make_placement`` / ``resolve_placement`` are the one factory the miner
-and the launcher go through.
+``make_placement`` / ``resolve_placement`` are the one factory the miner,
+the service and the launchers go through; :func:`is_device_failure` tells
+the service's device retries a device fault from a bug.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -42,6 +52,7 @@ from ..kernels.coverage.ref import coverage_accumulate_host
 from ..kernels.frontier import frontier as _f
 from ..kernels.frontier import ops as _fops
 from ..kernels.intersect import ops as _ops
+from ..obs import cost as _obs_cost
 from ..obs import metrics as _om
 from .bitops import device_bits, popcount_rows
 from .prefix import CandidateBatch, Level, generate_candidates, group_reps
@@ -50,6 +61,7 @@ from .support import ItemsetIndex, support_test
 __all__ = [
     "HostPlacement",
     "DevicePlacement",
+    "is_device_failure",
     "make_placement",
     "resolve_placement",
     "set_fault_hook",
@@ -84,14 +96,45 @@ _DISPATCHES = _om.counter(
 def _guard(site: str) -> None:
     # count first: a dispatch that the fault hook kills still happened
     _DISPATCHES.inc(site=site, kind="device")
+    _obs_cost.add(device_dispatches=1)
     if _fault_hook is not None:
         _fault_hook(site)
+
+
+# Substrings that mark a RuntimeError as a CUDA runtime failure: torch's own
+# ("CUDA error: ...", "CUDA out of memory") and the kernel wrappers'
+# ("<kernel>: launch failed: <cudaGetErrorString>").
+_DEVICE_FAILURE_MARKERS = ("CUDA error", "out of memory", ": launch failed: ")
+
+
+def is_device_failure(exc: BaseException) -> bool:
+    """Is ``exc`` a device/runtime failure worth retrying on the device —
+    as opposed to a bug that would fail the same way on every attempt?
+
+    Injected faults mark themselves with an ``is_device_failure`` attribute;
+    ``torch.cuda.OutOfMemoryError`` and CUDA runtime errors raised by torch
+    or by the kernel wrappers count. A kernel *build* failure
+    (``kernels/_build.py``: no ``nvcc``, a compile error) and an
+    ``ImportError`` never count: they would fail every retry alike."""
+    if getattr(exc, "is_device_failure", False):
+        return True
+    if isinstance(exc, ImportError):
+        return False
+    if isinstance(exc, torch.cuda.OutOfMemoryError):
+        return True
+    if not isinstance(exc, RuntimeError):
+        return False
+    msg = str(exc)
+    if msg.startswith(("CUDA kernel build failed", "nvcc not found")):
+        return False
+    return any(marker in msg for marker in _DEVICE_FAILURE_MARKERS)
 
 
 class HostPlacement:
     """Bitsets stay in host numpy; dispatch is eager and unpadded."""
 
     kind = "host"
+    store_word_tile = 1
 
     def prepare(self, bits, parent_counts, tau: int, *, fused_classify: bool):
         return (
@@ -101,8 +144,14 @@ class HostPlacement:
             fused_classify,
         )
 
-    def padded_size(self, m: int) -> int:
-        return m
+    def padded_size(self, m: int, *, pad_buckets: bool = True) -> int:
+        return m  # host gathers have no buckets to reuse
+
+    def put_bits(self, bits: np.ndarray):
+        return np.ascontiguousarray(bits)
+
+    def describe(self) -> dict:
+        return {"kind": self.kind, "engine": "numpy", "devices": 0}
 
     def dispatch(self, state, padded_pairs: np.ndarray, write_children: bool):
         _DISPATCHES.inc(site="dispatch", kind="host")
@@ -163,6 +212,7 @@ class DevicePlacement:
     """
 
     kind = "device"
+    store_word_tile = 1
 
     def __init__(self, engine: str = "cuda", *, device="cuda", indexed: bool = True):
         if engine not in ("torch", "cuda"):
@@ -192,8 +242,25 @@ class DevicePlacement:
             "owned": owned,
         }
 
-    def padded_size(self, m: int) -> int:
-        return _ops.next_bucket(m)
+    def padded_size(self, m: int, *, pad_buckets: bool = True) -> int:
+        return _ops.next_bucket(m) if pad_buckets else m
+
+    def put_bits(self, bits: np.ndarray) -> torch.Tensor:
+        """Place a long-lived (t, W) uint32 bitset matrix on this device:
+        int32 words, the word axis padded to a multiple of 4."""
+        return device_bits(bits, self.device)
+
+    def describe(self) -> dict:
+        return {
+            "kind": self.kind,
+            "engine": self.engine,
+            "devices": 1,
+            "backend": self.device.type,
+            "device": str(self.device),
+            "name": (torch.cuda.get_device_name(self.device)
+                     if self.device.type == "cuda" else "cpu"),
+            "indexed": self.indexed,
+        }
 
     def _pairs(self, pairs) -> torch.Tensor:
         if isinstance(pairs, torch.Tensor):
@@ -202,10 +269,13 @@ class DevicePlacement:
 
     def dispatch(self, state, padded_pairs, write_children: bool):
         _guard("dispatch")
-        fn = _ops.build_engine_dispatch(
-            self.engine, fused_classify=state["fused"], write_children=write_children,
+        fused = state["fused"]
+        key = (self.engine, self.indexed, fused, write_children,
+               int(state["bits"].shape[1]), int(padded_pairs.shape[0]), self.donate)
+        fn = _ops.EXEC_CACHE.get(key, lambda: _ops.build_engine_dispatch(
+            self.engine, fused_classify=fused, write_children=write_children,
             indexed=self.indexed, donate=self.donate,
-        )
+        ))
         return fn(state["bits"], self._pairs(padded_pairs), state["pc"], state["tau"])
 
     # -- coverage -------------------------------------------------------------
@@ -220,7 +290,9 @@ class DevicePlacement:
     def coverage_dispatch(self, state, padded_sets, padded_weights):
         """acc (32, padded W) int32 on the device for one padded batch."""
         _guard("coverage")
-        fn = _cov.build_coverage_dispatch(self.engine)
+        key = ("coverage", self.engine, int(padded_sets.shape[1]), int(state[0].shape[1]),
+               int(padded_sets.shape[0]))
+        fn = _cov.EXEC_CACHE.get(key, lambda: _cov.build_coverage_dispatch(self.engine))
         return fn(*state, padded_sets, padded_weights)
 
     # -- frontier -----------------------------------------------------------
@@ -241,12 +313,17 @@ class DevicePlacement:
     def frontier_dispatch(self, state, lo: int, hi: int, n_pairs: int):
         _guard("frontier")
         row_bucket, bucket = _fops.gen_buckets(hi - lo, n_pairs)
-        bits, ipw, _ = _f.pack_params(state["n_symbols"], state["k"])
+        k, n_symbols, t_pad = state["k"], state["n_symbols"], state["t_pad"]
+
+        def build():
+            bits, ipw, _ = _f.pack_params(n_symbols, k)
+            return functools.partial(
+                _f.gen_support_body, k=k, bucket=bucket, t_pad=t_pad, bits=bits, ipw=ipw
+            )
+
+        fn = _fops.EXEC_CACHE.get(("gen-support", k, n_symbols, t_pad, row_bucket, bucket), build)
         reps_b = torch.from_numpy(_fops.pad_reps(state["reps"][lo:hi], row_bucket)).to(self.device)
-        return _f.gen_support_body(
-            state["ids"], state["keys"], reps_b, lo, n_pairs,
-            k=state["k"], bucket=bucket, t_pad=state["t_pad"], bits=bits, ipw=ipw,
-        )
+        return fn(state["ids"], state["keys"], reps_b, lo, n_pairs)
 
     def frontier_mask(self, state, pairs, ok):
         return _f.mask_pruned_body(pairs, ok)

@@ -9,7 +9,13 @@ from .coverage import (
     reset_launches,
 )
 from .index import CoverageIndex, anchored_plan, build_coverage_index
-from .ops import CoverageEngine, build_coverage_dispatch
+from .ops import (
+    EXEC_CACHE,
+    CoverageEngine,
+    build_coverage_dispatch,
+    coverage_cache_stats,
+    reset_coverage_cache,
+)
 from .ref import (
     acc_to_record_counts,
     coverage_accumulate_anchored_ref,
@@ -26,6 +32,9 @@ __all__ = [
     "build_coverage_index",
     "anchored_plan",
     "CoverageEngine",
+    "EXEC_CACHE",
+    "coverage_cache_stats",
+    "reset_coverage_cache",
     "build_coverage_dispatch",
     "acc_to_record_counts",
     "coverage_accumulate_host",

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...core.exec_cache import exec_family
 from ...obs import metrics as _om
 from ...obs.trace import span as _obs_span
 from . import coverage as _k
@@ -25,7 +26,27 @@ _COV_BATCHES = _om.counter(
     "Coverage accumulator batches dispatched through the placement.",
 )
 
-__all__ = ["CoverageEngine", "build_coverage_dispatch"]
+__all__ = [
+    "CoverageEngine",
+    "build_coverage_dispatch",
+    "EXEC_CACHE",
+    "coverage_cache_stats",
+    "reset_coverage_cache",
+]
+
+# The bound coverage callables of the device placements, one per (engine,
+# set width, word width, batch bucket): the ``coverage`` family of the
+# process-wide ``repro_torch.core.exec_cache`` registry.
+EXEC_CACHE = exec_family("coverage")
+
+
+def coverage_cache_stats() -> dict:
+    """Snapshot of the coverage bucket cache (entries/hits/misses)."""
+    return EXEC_CACHE.stats()
+
+
+def reset_coverage_cache() -> None:
+    EXEC_CACHE.clear()
 
 
 def _upload(bits: torch.Tensor, sets: np.ndarray, weights: np.ndarray):

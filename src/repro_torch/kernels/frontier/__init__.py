@@ -13,7 +13,13 @@ from .frontier import (
     partition_body,
     support_ok_body,
 )
-from .ops import gen_buckets, make_level_tables, pad_reps, table_pad
+from .ops import (
+    EXEC_CACHE,
+    gen_buckets,
+    make_level_tables,
+    pad_reps,
+    table_pad,
+)
 from .ref import gen_pairs_np, key_table_np, lookup_np, pack_rows_np, partition_np
 
 __all__ = [
@@ -31,6 +37,7 @@ __all__ = [
     "make_level_tables",
     "pad_reps",
     "gen_buckets",
+    "EXEC_CACHE",
     "pack_rows_np",
     "key_table_np",
     "lookup_np",

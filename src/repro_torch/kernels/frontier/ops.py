@@ -9,11 +9,23 @@ from __future__ import annotations
 
 import numpy as np
 
+from ...core.exec_cache import exec_family
 from ...obs import metrics as _om
 from ..intersect.ops import next_bucket
 from .ref import key_table_np
 
-__all__ = ["table_pad", "make_level_tables", "pad_reps", "gen_buckets"]
+__all__ = [
+    "table_pad",
+    "make_level_tables",
+    "pad_reps",
+    "gen_buckets",
+    "EXEC_CACHE",
+]
+
+# The bound candidate-generation callables of the device placements, one per
+# (k, symbols, table pad, row bucket, pair bucket): the ``frontier`` family of
+# the process-wide ``repro_torch.core.exec_cache`` registry.
+EXEC_CACHE = exec_family("frontier")
 
 _LEVEL_TABLES = _om.counter(
     "repro_frontier_tables_total",

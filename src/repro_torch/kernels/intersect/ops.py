@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 
 from ...core.bitops import host_bits
+from ...core.exec_cache import exec_family
 from ...obs import metrics as _om
 from . import intersect as _k
 from . import ref as _ref
@@ -52,12 +53,18 @@ __all__ = [
     "LevelPipeline",
     "BatchHandle",
     "ENGINES",
+    "EXEC_CACHE",
     "CLASS_SKIP",
     "CLASS_EMIT",
     "CLASS_STORE",
 ]
 
 ENGINES = ("numpy", "torch", "cuda")
+
+# The bound dispatch callables of the device placements, one per (engine,
+# kernel variant, word width, batch bucket): the ``intersect`` family of the
+# process-wide ``repro_torch.core.exec_cache`` registry.
+EXEC_CACHE = exec_family("intersect")
 
 _MIN_BUCKET = 256
 

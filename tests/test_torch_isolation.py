@@ -1,6 +1,7 @@
 """The port imports neither JAX nor anything of the reference package
-``repro``: checked in a fresh interpreter that mines on the CPU, and by a
-scan of every import statement in the port's sources and in chip_smoke.py."""
+``repro``: checked in a fresh interpreter that mines on the CPU and builds
+the resident service there, and by a scan of every import statement in the
+port's sources and in chip_smoke.py."""
 
 import ast
 import os
@@ -16,10 +17,15 @@ import sys
 import numpy as np
 import repro_torch
 import repro_torch.launch.mine, repro_torch.convert
+import repro_torch.service, repro_torch.sampling, repro_torch.launch.serve_miner
 from repro_torch import KyivConfig, mine
+from repro_torch.service import MiningService
 D = np.random.default_rng(0).integers(0, 4, size=(120, 5))
 res = mine(D, KyivConfig(tau=1, kmax=3, engine="torch", device="cpu"))
 assert res.itemsets
+svc = MiningService.from_dataset(D, engine="torch", device="cpu")
+assert svc.mine(tau=1, kmax=3).result.itemsets
+svc.close()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
 print("BAD", bad)
