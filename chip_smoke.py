@@ -62,7 +62,22 @@ machine: the kernels build from the sources in the checkout into
    cold mine's ``torch.profiler`` trace (CUDA activity) naming the
    intersect kernels (its device busy and idle share and top kernels
    printed); then SIGTERM, and each server must exit 0;
-9. coverage-kernel: both coverage kernels (scanning and anchored) against
+9. durability: a third ``serve_miner`` on the card with ``--wal-dir``
+   preloads phase 8's CSV; its cold mine (tau=1, kmax=4) saves a level
+   checkpoint at each level boundary and is killed with SIGKILL once the
+   level-2 step is committed. Restarted without ``--preload`` over the same
+   directory, the server recovers the store from its write-ahead log and
+   resumes the mine on the card from the newest committed step (the same
+   step is also resumed in this process: phase 3's per-level stats);
+   ``/debug/lastcrash`` names the killed mine and its last checkpointed
+   level; the resumed answer, an incremental mine after an append of 1,341
+   rows and ``/risk`` equal the in-process ones, and the server's launches
+   show rows 1-2, 3 or 4, and the scanning coverage kernel. SIGTERM must exit
+   0 and leave a snapshot; a third start recovers from it with no WAL
+   record, reports the clean stop, serves ``/debug/bundle`` (gzipped JSON),
+   and answers a durable cold mine, timed beside phase 8's plain one with
+   each level checkpoint's bytes and seconds (from the flight ring);
+10. coverage-kernel: both coverage kernels (scanning and anchored) against
    the plain versions on the card, bit for bit, over widths, set sizes,
    batch sizes, sparse and sign-bit rows and weights that overflow int32
    (640 checks), and against the numpy host engine on small inputs; the
@@ -74,7 +89,7 @@ machine: the kernels build from the sources in the checkout into
    and the batches the Poker-hand mine's risk profile gives the dispatch
    (its quasi-identifiers by size, padded as ``CoverageEngine`` pads them:
    the scanning kernel), timed beside their bound;
-10. tiled: the group-tiled count kernel against its plain version on the
+11. tiled: the group-tiled count kernel against its plain version on the
    card, bit for bit, over block sizes, widths and group layouts (T from 1
    to a few thousand block pairs), then its path at full width: the level-3
    frontier of phase 3's table (66,810 rows in 3,066 prefix groups), from
@@ -853,6 +868,17 @@ def _http(port: int, path: str, payload=None, timeout: float = 600.0):
         return resp.status, (json.loads(body) if kind.startswith("application/json") else body)
 
 
+def _http_bytes(port: int, path: str, timeout: float = 600.0):
+    """GET ``path``; returns (status, the body's raw bytes). A gzipped body
+    (``Content-Encoding: gzip``) stays compressed."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=timeout) as resp:
+        if resp.headers.get("Content-Encoding") != "gzip":
+            fail(f"{path}: not gzipped ({resp.headers.get('Content-Encoding')})")
+        return resp.status, resp.read()
+
+
 def _value_sets_json(resp: dict) -> set:
     """A /mine answer as id-independent value sets."""
     return {(frozenset((int(c), int(v)) for c, v in s["items"]), int(s["count"]))
@@ -906,12 +932,21 @@ def _trace_summary(path: str) -> dict:
                 {"name": n[:120], "ms": v[0] / 1e3, "calls": v[1]} for n, v in top]}
 
 
-def _start_server(port: int, csv_path: Path, log_path: Path, extra: list[str]):
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _start_server(port: int, csv_path: Path | None, log_path: Path, extra: list[str]):
+    """A ``serve_miner`` subprocess on the card; ``csv_path`` None starts it
+    without ``--preload`` (a durable server recovering its store)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     log = open(log_path, "w")
+    preload = ["--preload", str(csv_path)] if csv_path is not None else []
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.serve_miner", "--port", str(port),
-         "--preload", str(csv_path), *extra],
+         *preload, *extra],
         cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT)
     log.close()
     return proc
@@ -962,8 +997,10 @@ def phase_service(device, poker_res):
     and ``/report``, an approximate mine served by the exact answer and one
     sampled and refined in the background, then ``/stats``, ``/metrics`` and
     the cold mine's profile trace. Every answer is held against an
-    in-process mine of the same rows. Returns the profiled server's kernel
-    launches over its run (from ``/stats``)."""
+    in-process mine of the same rows. Returns what phase durability reuses:
+    the CSV file (its directory is the caller's to remove), the table and
+    the appended rows in its codebook, the in-process answers and risk
+    profile, and the plain server's cold request time."""
     import tempfile
     import threading
 
@@ -984,11 +1021,7 @@ def phase_service(device, poker_res):
     t0 = time.perf_counter()
     np.savetxt(csv_path, poker_like(n=1_000_000, m=10, seed=0), fmt="%d", delimiter=",")
     wall["write_csv_s"] = time.perf_counter() - t0
-    ports = {}
-    for label in logs:
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            ports[label] = s.getsockname()[1]
+    ports = {label: _free_port() for label in logs}
     t0 = time.perf_counter()
     procs = {"plain": _start_server(ports["plain"], csv_path, logs["plain"], []),
              "profiled": _start_server(ports["profiled"], csv_path, logs["profiled"],
@@ -1076,7 +1109,8 @@ def phase_service(device, poker_res):
         drop = ("version", "source", "latency_s", "trace_id")
         risk = ask("risk", "profiled", "/risk?tau=1&kmax=4")
         profile = risk_profile(cold_all)
-        if {k: v for k, v in risk.items() if k not in drop} != json.loads(json.dumps(profile.summary())):
+        want_risk = json.loads(json.dumps(profile.summary()))
+        if {k: v for k, v in risk.items() if k not in drop} != want_risk:
             fail("service risk: differs from the in-process risk profile")
         rep = ask("report", "profiled", "/report?tau=1&kmax=4")
         want_rep = report_as_dict(QuasiIdentifierReport(result=cold_all, tau=1, kmax=4, _profile=profile))
@@ -1142,7 +1176,6 @@ def phase_service(device, poker_res):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    shutil.rmtree(tmp, ignore_errors=True)
     print("phase service: ok " + json.dumps({
         "dataset": "poker_like(n=1000000, m=10, seed=0) via CSV",
         "appended_rows": {"incremental": SERVICE_INCREMENTAL_ROWS, "cold": SERVICE_COLD_APPEND_ROWS},
@@ -1157,7 +1190,358 @@ def phase_service(device, poker_res):
         "executables": stats["executables"], "trace": {k: v for k, v in trace.items() if k != "kernels"},
         **wall,
     }), flush=True)
-    return launches
+    return {"tmp": tmp, "csv": csv_path, "table": table, "extra": extra, "want": want,
+            "cold_all": cold_all, "risk": want_risk, "plain_cold_s": requests[0]["wall_s"]}
+
+
+# -- phase durability --------------------------------------------------------
+
+# the job directory holds two level checkpoints (keep=2): at the Poker-hand
+# 1M table the level-3 step alone is ~8.4 GB (66,810 stored rows of 125,008
+# B), beside the level-2 step, a killed run's unfinished step and the WAL
+DURABILITY_FREE_BYTES = 12 * 10**9
+DURABLE_JOB = "v1_t1_k4_ascending"  # version 1 of the store, tau=1, kmax=4
+
+
+class _JobWatch:
+    """Polls a service's ``wal_dir/jobs`` on a thread: for each level
+    checkpoint written while it watches, when its temporary directory
+    appeared, when the committed step appeared (``manifest.json`` inside),
+    and its bytes. Steps already committed when it starts are left out."""
+
+    def __init__(self, jobs_root: Path):
+        import threading
+
+        self.root = jobs_root
+        self.steps: dict[tuple[str, int], dict] = {}
+        if jobs_root.is_dir():
+            for job in jobs_root.iterdir():
+                for step in _complete_steps(job):
+                    self.steps[(job.name, step)] = {"old": True}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.005):
+            try:
+                jobs = list(self.root.iterdir())
+            except FileNotFoundError:
+                continue
+            for job in jobs:
+                try:
+                    names = [p.name for p in job.iterdir()]
+                except FileNotFoundError:
+                    continue
+                now = time.perf_counter()
+                for name in names:
+                    if not name.startswith("ckpt_") or name.endswith(".corrupt"):
+                        continue
+                    step = int(name[5:15])
+                    rec = self.steps.setdefault((job.name, step), {"seen": now})
+                    if name.endswith(".tmp") or "done" in rec or "old" in rec:
+                        continue
+                    path = job / name
+                    if not (path / "manifest.json").is_file():
+                        continue
+                    try:
+                        rec["bytes"] = sum(f.stat().st_size for f in path.iterdir())
+                    except FileNotFoundError:
+                        rec["bytes"] = None
+                    rec["done"] = now
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join()
+
+    def landed(self, t0: float) -> list[dict]:
+        """The committed steps: bytes, seconds from ``t0`` to the commit, and
+        the write window (first sight of the step's directory to its commit)."""
+        return [{"job": job, "level": step, "bytes": rec.get("bytes"),
+                 "landed_s": rec["done"] - t0, "write_s": rec["done"] - rec["seen"]}
+                for (job, step), rec in sorted(self.steps.items()) if "done" in rec]
+
+
+def _complete_steps(job_dir: Path) -> list[int]:
+    if not job_dir.is_dir():
+        return []
+    return sorted(int(p.name[5:]) for p in job_dir.iterdir()
+                  if p.name.startswith("ckpt_") and not p.name.endswith((".tmp", ".corrupt"))
+                  and (p / "manifest.json").is_file())
+
+
+def _ring_events(flight_dir: Path, incarnation: int) -> list[dict]:
+    from repro_torch.obs.flight import read_segment
+
+    events = []
+    for side in ("a", "b"):
+        events += read_segment(str(flight_dir / f"inc{incarnation}.{side}"))[0]
+    return sorted(events, key=lambda e: e["seq"])
+
+
+def _span_seconds(events: list[dict], name: str) -> dict[int, float]:
+    """Durations of one incarnation's closed spans named ``name``, by their
+    ``k`` attribute (the level)."""
+    opened = {e["span_id"]: e for e in events if e["kind"] == "span.open" and e.get("name") == name}
+    return {opened[e["span_id"]]["attrs"]["k"]: e["duration_s"] for e in events
+            if e["kind"] == "span.close" and e.get("span_id") in opened}
+
+
+def _async_get(port: int, path: str) -> dict:
+    """GET ``path`` on a thread; the dict fills with the answer or the error
+    and its wall time."""
+    import threading
+
+    out: dict = {}
+
+    def run():
+        t = time.perf_counter()
+        try:
+            out["code"], out["body"] = _http(port, path, timeout=1200)
+        except Exception as exc:  # the server may be killed under it
+            out["error"] = f"{type(exc).__name__}: {exc}"
+        out["wall_s"] = time.perf_counter() - t
+
+    out["thread"] = threading.Thread(target=run, daemon=True)
+    out["thread"].start()
+    return out
+
+
+def phase_durability(device, poker_res, svc: dict):
+    """The durable service at the Poker-hand 1M table: a ``serve_miner``
+    with ``--wal-dir`` preloads phase service's CSV, takes a cold mine that
+    saves a level checkpoint at each level boundary, and is killed with
+    SIGKILL once its level-2 step is committed (and the flight ring holds
+    its ``job.checkpoint`` event). Restarted without ``--preload`` over the
+    same directory, it recovers the store from its WAL and resumes the mine
+    on the card from the newest committed step; the answer equals phase
+    service's in-process mine, and the same step resumed in this process
+    gives phase main's per-level stats. ``/debug/lastcrash`` names the
+    killed mine. Then an append answered incrementally, ``/risk``, and
+    SIGTERM, which snapshots the store; a third start recovers from that
+    snapshot alone, reports the clean stop, serves ``/debug/bundle``, and
+    answers a durable cold mine, whose level checkpoints are timed from
+    its flight ring."""
+    from repro_torch.core import KyivConfig
+    from repro_torch.core.kyiv import mine_preprocessed
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.service import MiningService
+    from repro_torch.service.wal import restricted_loads
+
+    import gzip
+
+    t_phase = time.perf_counter()
+    dev = str(device)
+    wal = svc["tmp"] / "wal"
+    wal.mkdir()
+    free = shutil.disk_usage(wal).free
+    if free < DURABILITY_FREE_BYTES:
+        fail(f"durability: {free / 1e9:.1f} GB free under {wal}, the level checkpoints need "
+             f"{DURABILITY_FREE_BYTES / 1e9:.0f} GB")
+    jobs_root, job_dir, flight_dir = wal / "jobs", wal / "jobs" / DURABLE_JOB, wal / "flight"
+    logs = [svc["tmp"] / f"durable{i}.log" for i in (1, 2, 3)]
+    out: dict = {"free_gb": free / 1e9}
+    procs = []
+
+    def ask(port, path, label, payload=None):
+        t = time.perf_counter()
+        code, body = _http(port, path, payload)
+        dt = time.perf_counter() - t
+        if code != 200:
+            fail(f"durability {label}: HTTP {code}: {body}")
+        source = body.get("source") if isinstance(body, dict) else None
+        print(f"  durability {label}: {dt:.4f} s source={source}", flush=True)
+        out.setdefault("requests", []).append({"request": label, "wall_s": dt, "source": source})
+        return body
+
+    try:
+        # 1. a durable server preloads the table: one WAL record
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs.append(_start_server(port, svc["csv"], logs[0], ["--wal-dir", str(wal)]))
+        out["preload_s"] = _wait_ready("durable 1", procs[0], port, logs[0], t0)
+        dur = ask(port, "/stats", "stats")["durability"]
+        if dur["wal_appends"] != 1 or dur["last_recovery"]["version"] != 0:
+            fail(f"durability: the preload did not land as one WAL record: {dur}")
+        out["wal_bytes"] = dur["wal_bytes"]
+        print(f"  durability: preload {out['preload_s']:.2f} s, WAL {dur['wal_bytes']:,} B, "
+              f"durability {json.dumps({k: v for k, v in dur.items() if k != 'directory'})}",
+              flush=True)
+
+        # 2. a cold mine, killed with SIGKILL once its level-2 step is committed
+        watch = _JobWatch(jobs_root)
+        t_req = time.perf_counter()
+        killed_req = _async_get(port, "/mine?tau=1&kmax=4")
+        while True:
+            if procs[0].poll() is not None:
+                fail(f"durability: the server exited with {procs[0].returncode} before its "
+                     "level-2 checkpoint:\n" + logs[0].read_text()[-4000:])
+            if 2 in _complete_steps(job_dir) and any(
+                    e["kind"] == "job.checkpoint" and e.get("level") == 2
+                    for e in _ring_events(flight_dir, 1)):
+                break
+            if time.perf_counter() - t_req > 300:
+                fail("durability: no level-2 checkpoint within 300 s")
+            time.sleep(0.005)
+        procs[0].send_signal(signal.SIGKILL)
+        procs[0].wait()
+        out["killed_after_s"] = time.perf_counter() - t_req
+        watch.stop()
+        killed_req["thread"].join(timeout=60)
+        if "error" not in killed_req:
+            fail(f"durability: the killed mine answered: {killed_req.get('code')}")
+        left = _complete_steps(job_dir)
+        newest = left[-1]
+        out["killed_steps"] = watch.landed(t_req)
+        out["steps_left"] = left
+        print(f"  durability: SIGKILL {out['killed_after_s']:.3f} s after the request; "
+              f"committed steps {left}; checkpoints that landed: {json.dumps(out['killed_steps'])}",
+              flush=True)
+
+        # the newest step, resumed in this process on the card from the
+        # server's own table: phase main's per-level stats
+        state_tree, _ = CheckpointManager(str(job_dir), keep=2).restore(newest)
+        state = restricted_loads(np.asarray(state_tree["state"], dtype=np.uint8).tobytes())
+        del state_tree
+        cfg = KyivConfig(tau=1, kmax=4, engine="cuda", device=dev)
+        local = MiningService(engine="cuda", device=dev)
+        local.append(svc["table"])
+        version, table = local.store.snapshot()
+        prep = local._prep_for(version, table, cfg)
+        t = time.perf_counter()
+        resumed_local = mine_preprocessed(prep, cfg, resume_state=state)
+        torch.cuda.synchronize()
+        out["inprocess_resume_s"] = time.perf_counter() - t
+        local.close()
+        del local, table, prep, state
+        if list(map(stat_tuple, resumed_local.stats)) != list(map(stat_tuple, poker_res.stats)):
+            fail("durability: the resumed mine's per-level stats differ from phase main's")
+        if _value_sets(resumed_local) != _value_sets(svc["want"]):
+            fail("durability: the resumed in-process mine differs from phase service's")
+        del resumed_local
+        torch.cuda.empty_cache()
+
+        # 3. restart without --preload: recover the store, resume the job
+        port = _free_port()
+        watch = _JobWatch(jobs_root)
+        t0 = time.perf_counter()
+        procs.append(_start_server(port, None, logs[1], ["--wal-dir", str(wal)]))
+        out["recover_s"] = _wait_ready("durable 2", procs[1], port, logs[1], t0)
+        resumed_req = _async_get(port, "/mine?tau=1&kmax=4")
+        stats = ask(port, "/stats", "stats after restart")
+        dur = stats["durability"]
+        rec = dur["last_recovery"]
+        if (dur["resumed_jobs"] != 1 or rec["replayed"] != 1 or rec["snapshot_version"] != 0
+                or stats["store"]["version"] != 1 or stats["store"]["n_rows"] != 1_000_000):
+            fail(f"durability: recovery {rec}, resumed {dur['resumed_jobs']}, store {stats['store']}")
+        report = ask(port, "/debug/lastcrash", "lastcrash")["report"]
+        open_names = [sp["name"] for sp in report["open_spans"]]
+        if (report["clean_shutdown"] or not any(n.startswith("mine.") for n in open_names)
+                or (report["last_checkpoint"] or {}).get("level") != newest):
+            fail(f"durability: /debug/lastcrash {json.dumps(report)[:2000]}")
+        if "previous incarnation died uncleanly" not in logs[1].read_text():
+            fail("durability: the restarted server did not warn of the unclean stop")
+        out["lastcrash"] = {"clean_shutdown": report["clean_shutdown"], "open_spans": open_names,
+                            "last_checkpoint_level": report["last_checkpoint"]["level"],
+                            "last_completed_level": report["last_completed_level"],
+                            "active_request_keys": report["active_request_keys"]}
+        print(f"  durability: ready after {out['recover_s']:.2f} s without --preload; recovery "
+              f"{json.dumps(rec)}; lastcrash {json.dumps(out['lastcrash'])}", flush=True)
+
+        # 4. the resumed mine
+        resumed_req["thread"].join(timeout=1200)
+        if "error" in resumed_req or resumed_req["code"] != 200:
+            fail(f"durability: resumed mine {resumed_req.get('error') or resumed_req.get('code')}")
+        res = resumed_req["body"]
+        out["resumed_mine_s"] = resumed_req["wall_s"]
+        if res["source"] != "cold" or res["info"].get("resumed_from_level") != newest + 1:
+            fail(f"durability: resumed mine source {res['source']}, info {res['info']}")
+        if _value_sets_json(res) != _value_sets(svc["want"]):
+            fail("durability: the resumed mine differs from the in-process mine")
+        launches = ask(port, "/stats", "stats after the resumed mine")["launches"]["intersect"]
+        need = ["intersect_classify_count_indexed"] + (
+            ["intersect_classify_write_indexed"] if newest + 1 < 4 else [])
+        if any(launches[k] == 0 for k in need):
+            fail(f"durability: the resumed mine did not launch {need}: {launches}")
+        watch.stop()
+        out["resumed_steps"] = watch.landed(t0)
+        out["resumed_launches"] = {k: v for k, v in launches.items() if v}
+        print(f"  durability: resumed from level {newest + 1} in {out['resumed_mine_s']:.3f} s "
+              f"(from the restart's ready); launches {out['resumed_launches']}; checkpoints "
+              f"{json.dumps(out['resumed_steps'])}", flush=True)
+
+        # 5. incremental after recovery, then risk
+        part = svc["extra"][:SERVICE_INCREMENTAL_ROWS]
+        app = ask(port, "/append", f"append {SERVICE_INCREMENTAL_ROWS}", {"rows": part.tolist()})
+        if app["version"] != 2 or app["n_rows"] != 1_000_000 + SERVICE_INCREMENTAL_ROWS:
+            fail(f"durability append: {app}")
+        inc = ask(port, "/mine?tau=1&kmax=4", "incremental")
+        if inc["source"] != "incremental" or _value_sets_json(inc) != _value_sets(svc["cold_all"]):
+            fail(f"durability incremental: source {inc['source']}")
+        risk = ask(port, "/risk?tau=1&kmax=4", "risk")
+        drop = ("version", "source", "latency_s", "trace_id")
+        if {k: v for k, v in risk.items() if k not in drop} != svc["risk"]:
+            fail("durability risk: differs from the in-process risk profile")
+        stats = ask(port, "/stats", "stats after risk")
+        after = stats["launches"]
+        if not (after["intersect"]["intersect_write_indexed"] > launches["intersect_write_indexed"]
+                or after["intersect"]["intersect_count_indexed"] > launches["intersect_count_indexed"]):
+            fail(f"durability: the incremental mine launched neither row 3 nor row 4: {after}")
+        if not after["coverage"].get(COVERAGE):
+            fail(f"durability: /risk did not launch {COVERAGE}: {after['coverage']}")
+        _no_refusal("durable 2", stats)
+        out["wal_bytes_after_append"] = stats["durability"]["wal_bytes"]
+
+        # 6. SIGTERM: exit 0, a fresh snapshot, the completed job gone
+        _stop_server("durable 2", procs[1], logs[1])
+        snap = CheckpointManager(str(wal / "snapshots"), keep=2).latest_step()
+        if snap != 2 or (jobs_root.is_dir() and any(jobs_root.iterdir())):
+            fail(f"durability: after SIGTERM the snapshot is v{snap}, jobs "
+                 f"{sorted(p.name for p in jobs_root.iterdir()) if jobs_root.is_dir() else []}")
+        port = _free_port()
+        watch = _JobWatch(jobs_root)
+        t0 = time.perf_counter()
+        procs.append(_start_server(port, None, logs[2], ["--wal-dir", str(wal)]))
+        out["clean_recover_s"] = _wait_ready("durable 3", procs[2], port, logs[2], t0)
+        rec = ask(port, "/stats", "stats after a clean stop")["durability"]["last_recovery"]
+        if rec["snapshot_version"] != 2 or rec["replayed"] != 0 or rec["version"] != 2:
+            fail(f"durability: the clean restart recovered {rec}")
+        report = ask(port, "/debug/lastcrash", "lastcrash after a clean stop")["report"]
+        if not report["clean_shutdown"]:
+            fail(f"durability: the clean stop reads as a crash: {json.dumps(report)[:2000]}")
+        code, raw = _http_bytes(port, "/debug/bundle")
+        bundle = json.loads(gzip.decompress(raw))
+        if code != 200 or "lastcrash" not in bundle or not bundle["lastcrash"]["clean_shutdown"]:
+            fail(f"durability: /debug/bundle {code} {sorted(bundle)}")
+        out["bundle_bytes"] = len(raw)
+
+        # 7. a durable cold mine, against the plain server's
+        cold = ask(port, "/mine?tau=1&kmax=4", "durable cold")
+        if cold["source"] != "cold" or _value_sets_json(cold) != _value_sets(svc["cold_all"]):
+            fail(f"durability: the durable cold mine: source {cold['source']}")
+        out["durable_cold_s"] = out["requests"][-1]["wall_s"]
+        watch.stop()
+        out["durable_steps"] = watch.landed(t0)
+        _stop_server("durable 3", procs[2], logs[2])
+        events = _ring_events(flight_dir, 3)
+        out["checkpoint_s"] = _span_seconds(events, "mine.checkpoint")
+        out["level_s"] = _span_seconds(events, "mine.level")
+        if sorted(out["checkpoint_s"]) != [2, 3, 4] or any(jobs_root.iterdir()):
+            fail(f"durability: the durable cold mine's checkpoints {out['checkpoint_s']}")
+        out["plain_cold_s"] = svc["plain_cold_s"]
+        print(f"  durability: durable cold mine {out['durable_cold_s']:.3f} s against the plain "
+              f"server's {out['plain_cold_s']:.3f} s (phase service); level checkpoints "
+              f"(s, from the flight ring) {json.dumps(out['checkpoint_s'])}, steps "
+              f"{json.dumps(out['durable_steps'])}", flush=True)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("phase durability: ok " + json.dumps(
+        {"dataset": "poker_like(n=1000000, m=10, seed=0) via CSV", "tau": 1, "kmax": 4, **out},
+        default=str), flush=True)
 
 
 # -- phase coverage-kernel -------------------------------------------------
@@ -1638,7 +2022,10 @@ def main() -> None:
     cov_launches, table_bits, qi3 = phase_privacy(device, poker_res)
     launches.update(cov_launches)
     torch.cuda.empty_cache()
-    phase_service(device, poker_res)
+    service = phase_service(device, poker_res)
+    phase_durability(device, poker_res, service)
+    shutil.rmtree(service["tmp"], ignore_errors=True)
+    del service
     cov = phase_coverage_kernel(device, table_bits, qi3, rates, poker_res)
     del table_bits, qi3, poker_res
     tiled = phase_tiled(device, poker_prep, rates)

@@ -25,11 +25,13 @@ Endpoints (JSON in / JSON out):
   GET  /risk?tau=1&kmax=3&top=10                        -> per-record risk profile
   GET  /anonymize?tau=1&kmax=3                          -> verified masking plan
   GET  /stats                                           -> store/placement/cache/http stats,
-                                                           resilience section, unified
-                                                           executables, last_mine timing
+                                                           durability/resilience sections,
+                                                           unified executables, last_mine
+                                                           timing
   GET  /healthz                                         -> liveness (never gated)
-  GET  /readyz                                          -> readiness: 503 while the
-                                                           device circuit breaker is open
+  GET  /readyz                                          -> readiness: 503 while recovering
+                                                           (WAL replay / job resume) or while
+                                                           the device circuit breaker is open
   POST /cancel   {"tau": 1, "kmax": 3}                  -> cancel in-flight matching runs
   GET  /metrics                                         -> Prometheus text exposition
                                                            (auth-gated, backpressure-exempt)
@@ -37,8 +39,16 @@ Endpoints (JSON in / JSON out):
                                                            &before=SEQ pages backwards
                                                            without duplicates (the response
                                                            carries "next_before")
+  GET  /debug/lastcrash                                 -> the previous incarnation's
+                                                           parsed flight ring (in-flight
+                                                           spans at death, last checkpointed
+                                                           level, active request keys)
   GET  /debug/slowlog?n=20                              -> newest-first slow-mine cost
                                                            envelopes (--slow-mine-threshold-s)
+  GET  /debug/bundle                                    -> one gzipped JSON postmortem
+                                                           bundle: metrics, traces, slowlog,
+                                                           lastcrash, stats, exec-cache keys,
+                                                           resolved config
 
 Request correlation: every data route runs under a trace. Clients may send
 ``X-Trace-Id``; the id (incoming or freshly minted) is echoed in the
@@ -54,9 +64,19 @@ promoted to exact) or "cache"; ``/stats`` carries a ``sampling`` section
 with the derived sampler seed and refinement counters.
 
 ``--profile-dir DIR`` wraps every cold mine in ``torch.profiler`` and writes
-its CPU and CUDA activity to ``DIR`` as a Chrome trace (the mine response's
-``info.profile_trace`` names the file). SIGTERM drains in-flight requests
-(bounded by ``--drain-timeout``) and exits 0.
+its activity (CUDA activity on a card) to ``DIR`` as a Chrome trace (the
+mine response's ``info.profile_trace`` names the file).
+
+Durability (``--wal-dir DIR``): appends are WAL-logged and fsync'd before
+itemization, snapshots fold the log every ``--snapshot-every`` appends, and
+a restarted server recovers the store to the exact pre-crash version (and
+resumes interrupted mine jobs from their last checkpointed level). A flight
+recorder (off with ``--no-flight``) keeps a crash-persistent event ring
+under ``DIR/flight``; the next start serves it parsed at
+``/debug/lastcrash``. SIGTERM drains in-flight requests (bounded by
+``--drain-timeout``), snapshots the store, and exits 0. A restart with the
+same ``--preload`` appends the preload again on top of the recovered store,
+as the reference server does: restart without it.
 
 Hardening:
 
@@ -71,6 +91,7 @@ Hardening:
 from __future__ import annotations
 
 import argparse
+import gzip
 import hmac
 import json
 import os
@@ -105,7 +126,7 @@ _log = obs_logs.get_logger()
 _KNOWN_ROUTES = frozenset(
     {"/append", "/mine", "/report", "/risk", "/anonymize", "/stats",
      "/cancel", "/healthz", "/readyz", "/metrics", "/trace",
-     "/debug/slowlog"}
+     "/debug/lastcrash", "/debug/slowlog", "/debug/bundle"}
 )
 # data routes run under a trace; probes and the obs endpoints themselves
 # don't (a scrape must never displace a mining trace in the ring buffer)
@@ -174,6 +195,18 @@ class MinerHandler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
+    def _send_gzip_json(self, code: int, payload: dict) -> None:
+        body = gzip.compress(json.dumps(payload, default=str).encode("utf-8"))
+        self._last_code = code
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Encoding", "gzip")
+        self.send_header("Content-Length", str(len(body)))
+        if self._trace_id:
+            self.send_header("X-Trace-Id", self._trace_id)
+        self.end_headers()
+        self.wfile.write(body)
+
     def _body(self) -> dict:
         length = int(self.headers.get("Content-Length") or 0)
         if not length:
@@ -216,8 +249,8 @@ class MinerHandler(BaseHTTPRequestHandler):
             return
         if route.startswith("/debug/"):
             # forensic snapshots are backpressure-exempt for the same reason
-            # /metrics is: a saturated server is exactly when operators need
-            # them (still auth-gated — internals leak here)
+            # /metrics is: a saturated or just-crashed server is exactly when
+            # operators need them (still auth-gated — internals leak here)
             self._handle_debug(route, payload)
             return
         if self.inflight is not None and not self.inflight.acquire(blocking=False):
@@ -329,7 +362,12 @@ class MinerHandler(BaseHTTPRequestHandler):
         )
 
     def _handle_debug(self, route: str, payload: dict) -> None:
-        if route == "/debug/slowlog":
+        if route == "/debug/lastcrash":
+            self._count("debug")
+            self._send(
+                200, {"report": self.service.last_crash_report()}
+            )
+        elif route == "/debug/slowlog":
             self._count("debug")
             n = payload.get("n")
             self._send(
@@ -341,6 +379,9 @@ class MinerHandler(BaseHTTPRequestHandler):
                     "slowlog": self.service.slowlog.stats(),
                 },
             )
+        elif route == "/debug/bundle":
+            self._count("debug")
+            self._send_gzip_json(200, self.service.debug_bundle())
         else:
             self._send(404, {"error": f"unknown route {route}"})
 
@@ -439,6 +480,11 @@ def main(argv=None) -> None:
     ap.add_argument("--cache-max-bytes", type=int, default=None,
                     help="bound the result cache by payload bytes, not just "
                          "entry count")
+    ap.add_argument("--wal-dir", default=None,
+                    help="durability directory (write-ahead log + snapshots); "
+                         "a restarted server recovers the store from it")
+    ap.add_argument("--snapshot-every", type=int, default=8,
+                    help="fold the WAL into a snapshot every N appends")
     ap.add_argument("--drain-timeout", type=float, default=10.0,
                     help="seconds SIGTERM waits for in-flight requests before "
                          "cancelling them")
@@ -475,6 +521,14 @@ def main(argv=None) -> None:
     ap.add_argument("--slow-mine-threshold-s", type=float, default=1.0,
                     help="mines slower than this land in GET /debug/slowlog "
                          "with their full cost envelope")
+    ap.add_argument("--no-flight", action="store_true",
+                    help="disable the crash-persistent flight recorder "
+                         "(only meaningful with --wal-dir)")
+    ap.add_argument("--flight-fsync-s", type=float, default=0.25,
+                    help="flight-recorder flush/fsync cadence; checkpoints "
+                         "and config events always fsync inline")
+    ap.add_argument("--flight-max-bytes", type=int, default=1 << 20,
+                    help="on-disk bound for the flight event ring")
     args = ap.parse_args(argv)
     if args.engine != "numpy" and args.device.startswith("cuda") and not torch.cuda.is_available():
         ap.exit(2, f"serve_miner: --engine {args.engine} on {args.device} needs a CUDA card and "
@@ -491,9 +545,14 @@ def main(argv=None) -> None:
         cache_capacity=args.cache_capacity,
         cache_max_bytes=args.cache_max_bytes,
         compact_threshold=args.compact_threshold,
+        wal_dir=args.wal_dir,
+        snapshot_every=args.snapshot_every,
         incremental=IncrementalConfig(max_delta_fraction=args.max_delta_fraction),
         profile_dir=args.profile_dir,
         slow_mine_threshold_s=args.slow_mine_threshold_s,
+        flight_enabled=not args.no_flight,
+        flight_fsync_s=args.flight_fsync_s,
+        flight_max_bytes=args.flight_max_bytes,
     )
 
     if args.preload == "randomized":
@@ -521,18 +580,18 @@ def main(argv=None) -> None:
     port = server.server_address[1]
     _log.info(
         "serve_miner on http://%s:%d (placement=%s, rows=%d, items=%d, "
-        "auth=%s, max_inflight=%s, profile=%s)",
+        "auth=%s, max_inflight=%s, wal=%s, profile=%s)",
         args.host, port, service.placement.describe(),
         store.n_rows if store else 0, store.n_items if store else 0,
         "on" if args.auth_token else "off",
-        args.max_inflight or "unbounded",
+        args.max_inflight or "unbounded", args.wal_dir or "off",
         args.profile_dir or "off",
         extra={"event": "startup", "port": port},
     )
 
     # graceful shutdown: the server loop runs in a thread; the main thread
     # waits on the signal, stops accepting, drains in-flight work (bounded),
-    # and exits 0 so supervisors see a clean stop
+    # snapshots the durable store, and exits 0 so supervisors see a clean stop
     stop = threading.Event()
 
     def _on_signal(signum, frame):
@@ -552,11 +611,13 @@ def main(argv=None) -> None:
     server.shutdown()
     thread.join()
     drain = service.drain(args.drain_timeout)
+    snapshot = service.snapshot_store()
     server.server_close()
     service.close()
     _log.info(
-        "serve_miner stopped (drained=%d, abandoned=%d)",
+        "serve_miner stopped (drained=%d, abandoned=%d, snapshot=%s)",
         drain["drained"], drain["abandoned"],
+        "v%d" % snapshot if snapshot is not None else "none",
         extra={"event": "shutdown", "drained": drain["drained"],
                "abandoned": drain["abandoned"]},
     )

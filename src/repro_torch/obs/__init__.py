@@ -6,6 +6,9 @@ cost accounting, and the opt-in profiler shim.
   ``GET /metrics`` and snapshotted into ``/stats``.
 * :mod:`trace` — contextvar-propagated span trees per request, served by
   ``GET /trace``.
+* :mod:`flight` — the black-box flight recorder: a bounded, CRC-framed
+  on-disk event ring (span open/close, checkpoints, breaker transitions,
+  config) parsed into a ``LastCrashReport`` on restart.
 * :mod:`cost` — the per-request ``CostEnvelope`` and the slow-mine log.
 * :mod:`logs` — structured (optionally JSON) logging carrying the active
   ``trace_id``.
@@ -16,18 +19,22 @@ Import discipline: this package is a leaf like ``core/exec_cache.py`` —
 nothing in it imports the rest of ``repro_torch`` at module scope.
 """
 
-from . import cost, logs, metrics, trace
+from . import cost, flight, logs, metrics, trace
 from .cost import CostEnvelope, SlowMineLog
+from .flight import FlightRecorder, LastCrashReport
 from .metrics import REGISTRY, counter, gauge, histogram, lint_exposition
 from .trace import TRACER, current_trace_id, device_sync, span, start_trace
 
 __all__ = [
     "cost",
+    "flight",
     "logs",
     "metrics",
     "trace",
     "CostEnvelope",
     "SlowMineLog",
+    "FlightRecorder",
+    "LastCrashReport",
     "REGISTRY",
     "TRACER",
     "counter",

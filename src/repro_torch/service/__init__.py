@@ -10,7 +10,8 @@ appends at delta cost, ``ResultCache``/``RequestScheduler`` make repeat and
 concurrent traffic cheap, and ``MiningService`` is the facade the HTTP
 endpoint (``repro_torch.launch.serve_miner``) exposes.
 
-``resilience`` retries device failures behind a circuit breaker (a mine the
+The durability layer (``wal.DurableStore``) makes the store survive process
+death, ``resilience`` retries device failures behind a circuit breaker (a mine the
 card keeps failing is refused with ``DeviceUnavailable``, never answered from
 the host), and ``faults`` is the chaos-test injection harness.
 """
@@ -34,6 +35,7 @@ from .incremental import (
 from .resilience import CircuitBreaker, ResilienceConfig
 from .scheduler import RequestScheduler
 from .store import DatasetStore
+from .wal import DurableStore, WriteAheadLog
 
 __all__ = [
     "CacheEntry",
@@ -42,6 +44,7 @@ __all__ = [
     "DeadlineExceeded",
     "DeviceFault",
     "DeviceUnavailable",
+    "DurableStore",
     "FaultInjector",
     "IncrementalConfig",
     "KillPoint",
@@ -53,6 +56,7 @@ __all__ = [
     "ResultBands",
     "ResultCache",
     "SamplingConfig",
+    "WriteAheadLog",
     "delta_support",
     "make_approx_key",
     "make_key",

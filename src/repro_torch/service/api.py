@@ -28,11 +28,21 @@ device="cpu"`` or ``engine="numpy"`` serve from the CPU. The store uploads
 each version once to the placement's device, cold mines gather their level 1
 and incremental mines their seed extensions from that resident tensor, and
 ``/risk`` and ``/report`` run the coverage kernels on the same device.
+
+Durability (``wal_dir``): appends are WAL-logged before itemization, the
+store is snapshotted every ``snapshot_every`` appends, cold mines save a
+level checkpoint at every ``job_checkpoint_levels``-th level boundary, and
+a service rebuilt over the same directory recovers the store and resumes
+the interrupted mine from its newest checkpoint. A black-box flight
+recorder under ``wal_dir/flight`` narrates each incarnation, and the next
+one parses it into a :class:`~repro_torch.obs.flight.LastCrashReport`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import pickle
 import threading
 import time
 from collections import OrderedDict
@@ -47,11 +57,13 @@ from ..core.placement import is_device_failure, resolve_placement
 from ..core.preprocess import preprocess
 from ..core import exec_cache
 from ..obs import cost as _obs_cost
+from ..obs import flight as _obs_flight
 from ..obs import metrics as _om
 from ..obs.trace import TRACER as _obs_tracer
 from ..obs.trace import current_trace_id as _obs_current_trace_id
 from ..obs.trace import span as _obs_span
 from ..obs.trace import start_trace as _obs_start_trace
+from ..distributed.checkpoint import CheckpointManager
 from ..kernels.coverage import coverage as _cov_kernels
 from ..kernels.intersect import LevelPipeline
 from ..kernels.intersect import intersect as _intersect_kernels
@@ -65,6 +77,7 @@ from .incremental import IncrementalConfig, ResultBands, mine_incremental
 from .resilience import CircuitBreaker, ResilienceConfig
 from .scheduler import RequestScheduler
 from .store import DatasetStore
+from .wal import DurableStore, restricted_loads
 
 __all__ = [
     "MineResponse",
@@ -124,9 +137,10 @@ _SAMPLING_REFINE_SECONDS = _om.histogram(
 
 
 class NotReadyError(RuntimeError):
-    """The service is not ready yet (constructed with ``defer_recovery``
-    and :meth:`MiningService.recover` not called) — liveness is fine,
-    readiness is not; HTTP maps this to 503."""
+    """The service is still recovering (WAL replay / job resume, or
+    constructed with ``defer_recovery`` and :meth:`MiningService.recover`
+    not called yet) — liveness is fine, readiness is not; HTTP maps this
+    to 503."""
 
 
 class DeviceUnavailable(NotReadyError):
@@ -236,6 +250,9 @@ class MiningService:
         word_tile: int = 8,
         compact_threshold: int | None = None,
         keep_versions: int = 8,
+        wal_dir: str | None = None,
+        snapshot_every: int = 8,
+        job_checkpoint_levels: int = 1,
         deadline_grace_s: float = 2.0,
         fault_injector=None,
         resilience: ResilienceConfig | None = None,
@@ -244,6 +261,9 @@ class MiningService:
         sampling: SamplingConfig | None = None,
         slow_mine_threshold_s: float = 1.0,
         slow_log_size: int = 64,
+        flight_enabled: bool = True,
+        flight_fsync_s: float = 0.25,
+        flight_max_bytes: int = 1 << 20,
         **config_kw,
     ):
         self.config = config or KyivConfig(**config_kw)
@@ -261,18 +281,52 @@ class MiningService:
             compact_threshold=compact_threshold,
             keep_versions=keep_versions,
         )
-        # the reference checks its injector only on the durable path (level
-        # checkpoints), which this package does not have yet; device faults
-        # go through ``faults.placement_faults`` and the placement's hook
+        # sites: ``wal.append`` (the durable store), ``mine.level_end`` (after
+        # each level checkpoint of a durable cold mine); device faults go
+        # through ``faults.placement_faults`` and the placement's hook
         self.injector = fault_injector or NULL_INJECTOR
         self.resilience = resilience or ResilienceConfig()
         self.breaker = CircuitBreaker(
             self.resilience.failure_threshold, self.resilience.cooldown_s
         )
+        self.wal_dir = wal_dir
+        self.job_checkpoint_levels = max(1, int(job_checkpoint_levels))
         self.deadline_grace_s = deadline_grace_s
+        # forensics: parse the *previous* incarnation's flight ring into a
+        # LastCrashReport before opening this incarnation's (which reaps the
+        # old segment files), then hook the recorder into the tracer and the
+        # breaker. No wal_dir -> no ring (the recorder is crash forensics;
+        # an in-memory service has nothing to survive into).
         self.slowlog = _obs_cost.SlowMineLog(slow_mine_threshold_s, slow_log_size)
+        self.flight: _obs_flight.FlightRecorder | None = None
+        self.last_crash: _obs_flight.LastCrashReport | None = None
+        if wal_dir is not None and flight_enabled:
+            flight_dir = os.path.join(wal_dir, "flight")
+            self.last_crash = _obs_flight.recover(flight_dir)
+            self.flight = _obs_flight.FlightRecorder(
+                flight_dir,
+                fsync_interval_s=flight_fsync_s,
+                max_bytes=flight_max_bytes,
+            )
+            _obs_tracer.add_listener(self.flight.span_listener)
+            self.breaker.on_transition = (
+                lambda state: self._flight_record("breaker.transition", state=state)
+            )
+        self._durable: DurableStore | None = (
+            DurableStore(
+                wal_dir,
+                snapshot_every=snapshot_every,
+                injector=self.injector,
+                recorder=self.flight,
+                **self._store_kw,
+            )
+            if wal_dir is not None
+            else None
+        )
         self._store: DatasetStore | None = (
-            DatasetStore(n_cols, **self._store_kw) if n_cols else None
+            DatasetStore(n_cols, **self._store_kw)
+            if n_cols and self._durable is None
+            else None
         )
         self.cache = ResultCache(cache_capacity, max_bytes=cache_max_bytes)
         self.scheduler = RequestScheduler(max_workers=max_workers)
@@ -282,10 +336,12 @@ class MiningService:
         self._lock = threading.Lock()
         self._ready = threading.Event()
         self._controls: dict[tuple, RunControl] = {}
+        self._recovery_info: dict | None = None
         self._drain_info: dict | None = None
         self.served = 0
         self.device_retries = 0
         self.unavailable_mines = 0
+        self.resumed_jobs = 0
         self.sampling = sampling or SamplingConfig()
         # plain-int counters + a last-request snapshot dict: written under
         # self._lock, read lock-free by /stats and the scrape collector
@@ -302,8 +358,26 @@ class MiningService:
         self._collector_fn = self._collect_metrics
         _om.REGISTRY.register_collector("service", self._collector_fn)
         exec_cache.publish_metrics()
+        if self.flight is not None:
+            # first durable event: the resolved config this incarnation runs
+            # with — the postmortem's "what was it configured to do"
+            self.flight.record("config", config=self._resolved_config())
+            if self.last_crash is not None and not self.last_crash.clean_shutdown:
+                from ..obs import logs as _obs_logs
+
+                _obs_logs.get_logger("repro_torch.service").warning(
+                    "previous incarnation died uncleanly: %d open span(s), "
+                    "last checkpointed level %s — GET /debug/lastcrash for "
+                    "the full report",
+                    len(self.last_crash.open_spans),
+                    (self.last_crash.last_checkpoint or {}).get("level"),
+                )
         if not defer_recovery:
             self.recover()
+
+    def _flight_record(self, kind: str, **fields) -> None:
+        if self.flight is not None:
+            self.flight.record(kind, **fields)
 
     def _account_cost(
         self,
@@ -324,6 +398,45 @@ class MiningService:
         self.slowlog.offer(env, tau=int(tau), kmax=int(kmax))
         return env.to_dict()
 
+    def _resolved_config(self) -> dict:
+        """The effective configuration this incarnation serves with — the
+        flight ring's startup event and the debug bundle's config section."""
+        cfg = {
+            f.name: getattr(self.config, f.name)
+            for f in dataclasses.fields(self.config)
+        }
+        cfg["placement"] = self.placement.kind
+        return {
+            "mining": cfg,
+            "wal_dir": self.wal_dir,
+            "job_checkpoint_levels": self.job_checkpoint_levels,
+            "deadline_grace_s": self.deadline_grace_s,
+            "cache": {
+                "capacity": self.cache.capacity,
+                "max_bytes": self.cache.max_bytes,
+            },
+            "resilience": {
+                "max_retries": self.resilience.max_retries,
+                "failure_threshold": self.resilience.failure_threshold,
+                "cooldown_s": self.resilience.cooldown_s,
+            },
+            "sampling": {
+                "epsilon": self.sampling.epsilon,
+                "delta": self.sampling.delta,
+                "seed": self.sampling.seed,
+            },
+            "slow_mine_threshold_s": self.slowlog.threshold_s,
+            "flight": (
+                {
+                    "fsync_interval_s": self.flight.fsync_interval_s,
+                    "max_bytes": self.flight.max_bytes,
+                    "incarnation": self.flight.incarnation,
+                }
+                if self.flight is not None
+                else None
+            ),
+        }
+
     @classmethod
     def from_dataset(cls, dataset: np.ndarray, **kw) -> "MiningService":
         dataset = np.asarray(dataset)
@@ -338,7 +451,7 @@ class MiningService:
         return self._ready.is_set()
 
     def readiness(self) -> tuple[bool, str]:
-        """(ready, reason). Not ready before :meth:`recover`, and while the
+        """(ready, reason). Not ready while recovering, and while the
         circuit breaker is open (mines are refused with
         :class:`DeviceUnavailable` until a probe after the cooldown
         succeeds)."""
@@ -350,12 +463,21 @@ class MiningService:
 
     def _require_ready(self) -> None:
         if not self._ready.is_set():
-            raise NotReadyError("service is not ready yet — retry shortly")
+            raise NotReadyError("service is recovering — retry shortly")
 
-    def recover(self) -> None:
-        """Flip ready. The service keeps no durable state to replay (no
-        write-ahead log yet), so this only ends a ``defer_recovery`` start."""
+    def recover(self) -> dict | None:
+        """Replay durability state (WAL + snapshots), resume interrupted
+        mine jobs, then flip ready. Without a ``wal_dir`` this just marks
+        the service ready."""
+        info = None
+        if self._durable is not None:
+            info = self._durable.recover()
+            with self._lock:
+                self._store = self._durable.store
+            info["resumed_jobs"] = self._resume_jobs()
+            self._recovery_info = info
         self._ready.set()
+        return info
 
     # -- store --------------------------------------------------------------
 
@@ -371,10 +493,15 @@ class MiningService:
         if rows.ndim == 1:
             rows = rows[None, :]
         with _obs_span("service.append", rows=int(rows.shape[0])):
-            with self._lock:
-                if self._store is None:
-                    self._store = DatasetStore(rows.shape[1], **self._store_kw)
-            version = self.store.append(rows)
+            if self._durable is not None:
+                version = self._durable.append(rows)
+                with self._lock:
+                    self._store = self._durable.store
+            else:
+                with self._lock:
+                    if self._store is None:
+                        self._store = DatasetStore(rows.shape[1], **self._store_kw)
+                version = self.store.append(rows)
         _APPENDS.inc()
         _APPENDED_ROWS.inc(int(rows.shape[0]))
         return {
@@ -446,6 +573,65 @@ class MiningService:
 
         return factory
 
+    # -- resumable jobs ------------------------------------------------------
+
+    def _job_manager(self, key: tuple) -> CheckpointManager | None:
+        """Per-(version, tau, kmax, ordering) mid-run checkpoint manager —
+        only when the service is durable (a crash-only concern)."""
+        if self._durable is None:
+            return None
+        version, tau, kmax, ordering = key
+        name = f"v{version}_t{tau}_k{kmax}_{ordering}"
+        return CheckpointManager(
+            os.path.join(self.wal_dir, "jobs", name), keep=2
+        )
+
+    def _resume_jobs(self) -> int:
+        """Re-issue mine runs that had level checkpoints when the process
+        died. Jobs at a stale store version are dropped (their answer is no
+        longer the current-version answer anyone will ask for)."""
+        jobs_root = os.path.join(self.wal_dir, "jobs")
+        if not os.path.isdir(jobs_root):
+            return 0
+        resumed = 0
+        current = self._store.version if self._store is not None else 0
+        for name in sorted(os.listdir(jobs_root)):
+            try:
+                vs, ts, ks, ordering = name.split("_", 3)
+                version, tau, kmax = int(vs[1:]), int(ts[1:]), int(ks[1:])
+            except (ValueError, IndexError):
+                continue
+            mgr = CheckpointManager(os.path.join(jobs_root, name), keep=2)
+            if version != current or mgr.latest_step() is None:
+                mgr.destroy()
+                continue
+            snap_version, table = self.store.snapshot()
+            if snap_version != version:
+                mgr.destroy()
+                continue
+            key = make_key(version, tau, kmax, ordering)
+            self.scheduler.submit(key, lambda k=key, t=table: self._compute(k, t))
+            resumed += 1
+        self.resumed_jobs += resumed
+        return resumed
+
+    @staticmethod
+    def _restore_job(mgr: CheckpointManager):
+        """The newest level checkpoint's ``MiningState``, or None. A blob
+        that does not load (a corrupt step, or one naming another package's
+        classes, such as the reference's) drops the job: the mine runs cold
+        and never imports what the blob names."""
+        try:
+            state_tree, _meta = mgr.restore()
+            if state_tree is None:
+                return None
+            return restricted_loads(
+                np.asarray(state_tree["state"], dtype=np.uint8).tobytes()
+            )
+        except Exception:
+            mgr.destroy()
+            return None
+
     def _mine_cold(
         self,
         key: tuple,
@@ -453,7 +639,8 @@ class MiningService:
         config: KyivConfig,
         control: RunControl | None,
     ) -> tuple[MiningResult, dict]:
-        """Cold mine with device retries behind the circuit breaker. Only
+        """Cold mine with device retries behind the circuit breaker, and
+        (when durable) level checkpoints for resume. Only
         :func:`is_device_failure` errors retry; when the retries run out, or
         the breaker is open, the mine is refused with
         :class:`DeviceUnavailable` (never answered from the host). A kernel
@@ -464,6 +651,39 @@ class MiningService:
         info: dict = {"n_rows": table.n_rows, "n_items": table.n_items,
                       "prepare_s": time.perf_counter() - t0}
 
+        mgr = self._job_manager(key)
+        on_level_end = None
+        resume_state = None
+        if mgr is not None:
+            resume_state = self._restore_job(mgr)
+            if resume_state is not None:
+                info["resumed_from_level"] = int(resume_state.next_k)
+
+            def on_level_end(level, state, _mgr=mgr):
+                if level % self.job_checkpoint_levels == 0:
+                    blob = pickle.dumps(state, protocol=pickle.HIGHEST_PROTOCOL)
+                    _mgr.save(
+                        level,
+                        {"state": np.frombuffer(blob, dtype=np.uint8)},
+                        blocking=True,
+                    )
+                    # durable flight event — its inline fsync also carries
+                    # every buffered span-open to disk, so a death right
+                    # after the checkpoint still yields a ring that names
+                    # the in-flight level
+                    self._flight_record(
+                        "job.checkpoint", level=int(level), key=list(key)
+                    )
+                # the kill-mid-mine seam fires *after* the save — simulated
+                # death leaves the checkpoint the restart resumes from
+                self.injector.check("mine.level_end")
+
+        def mine_run(factory):
+            return mine_preprocessed(
+                prep, config, pipeline_factory=factory, on_level_end=on_level_end,
+                resume_state=resume_state, control=control,
+            )
+
         def run(factory):
             if self.profile_dir:
                 # opt-in device profiling: a torch.profiler Chrome trace per
@@ -473,9 +693,7 @@ class MiningService:
 
                 device = getattr(self.placement, "device", None)
                 with obs_profile.profile(self.profile_dir, device=device) as prof:
-                    result = mine_preprocessed(
-                        prep, config, pipeline_factory=factory, control=control
-                    )
+                    result = mine_run(factory)
                     prof.set_result(result)
                 info["profile_trace"] = prof.trace_path
                 info["profile_s"] = {"start": prof.start_s,
@@ -484,30 +702,42 @@ class MiningService:
                 if prof.error is not None:
                     info["profile_error"] = prof.error
                 return result
-            return mine_preprocessed(prep, config, pipeline_factory=factory, control=control)
+            return mine_run(factory)
 
         if self.placement.kind == "host":
-            return run(None), info
-        if not self.breaker.allow():
-            self._refuse("the circuit breaker is open after repeated device failures")
-        delay = self.resilience.backoff_s
-        attempt = 0
-        while True:
-            try:
-                result = run(self._warm_pipeline_factory(version, prep, config))
-                self.breaker.record_success()
-                return result, info
-            except Exception as exc:
-                if not is_device_failure(exc):
-                    raise
-                self.breaker.record_failure()
-                attempt += 1
-                if attempt > self.resilience.max_retries or not self.breaker.allow():
-                    self._refuse(f"the mine failed on the device {attempt} time(s): "
-                                 f"{type(exc).__name__}: {exc}", exc)
-                self.device_retries += 1
-                self.resilience.sleep(delay)
-                delay *= 2
+            result = run(None)
+        else:
+            if not self.breaker.allow():
+                self._refuse("the circuit breaker is open after repeated device failures")
+            delay = self.resilience.backoff_s
+            attempt = 0
+            while True:
+                try:
+                    result = run(self._warm_pipeline_factory(version, prep, config))
+                    self.breaker.record_success()
+                    break
+                except Exception as exc:
+                    if not is_device_failure(exc):
+                        raise
+                    self._flight_record(
+                        "dispatch.failure",
+                        error=f"{type(exc).__name__}: {exc}",
+                        attempt=attempt,
+                        key=list(key),
+                    )
+                    self.breaker.record_failure()
+                    attempt += 1
+                    if attempt > self.resilience.max_retries or not self.breaker.allow():
+                        self._refuse(f"the mine failed on the device {attempt} time(s): "
+                                     f"{type(exc).__name__}: {exc}", exc)
+                    self.device_retries += 1
+                    self.resilience.sleep(delay)
+                    delay *= 2
+        if mgr is not None:
+            # run finished (complete or deliberately interrupted) — resume
+            # state is only for crashes, which never reach this line
+            mgr.destroy()
+        return result, info
 
     def _refuse(self, reason: str, cause: BaseException | None = None) -> None:
         with self._lock:
@@ -570,6 +800,12 @@ class MiningService:
                 except Exception as exc:
                     if not is_device_failure(exc):
                         raise
+                    self._flight_record(
+                        "dispatch.failure",
+                        error=f"{type(exc).__name__}: {exc}",
+                        site="incremental",
+                        key=list(key),
+                    )
                     # the cold path retries on the device, then refuses
                     self.breaker.record_failure()
                     inc = None
@@ -599,6 +835,8 @@ class MiningService:
                     self.cache.put(entry)
                     return entry
 
+            # the request key rides the span's *open* attrs so the flight
+            # ring can name the active requests at death
             with _obs_span("mine.cold", version=version, key=list(key)):
                 result, info = self._mine_cold(key, table, config, control)
             # per-level host-busy vs device-busy split of the last cold run —
@@ -936,8 +1174,9 @@ class MiningService:
         (``sampling.refine``) and
         re-caches the approx entry with those counts resolved. Stage 2
         promotes to the bit-exact answer through the standard ``_compute``
-        path, so device retries and request coalescing apply. Runs
-        under the exact
+        path, so job checkpoints, device retries and request coalescing
+        all apply — a crash mid-promotion leaves a level checkpoint that
+        restart recovery resumes. Runs under the exact
         cache key: concurrent exact requests coalesce onto this run and
         receive the returned exact entry."""
         version, tau, kmax, ordering = ekey
@@ -1110,10 +1349,37 @@ class MiningService:
         )
         return out
 
+    # -- forensics ----------------------------------------------------------
+
+    def last_crash_report(self) -> dict | None:
+        """The previous incarnation's parsed flight ring (``None`` on first
+        boot or without a flight recorder) — ``GET /debug/lastcrash``."""
+        return self.last_crash.to_dict() if self.last_crash is not None else None
+
     def slowlog_entries(self, n: int | None = None) -> list[dict]:
         """Newest-first slow-mine envelopes — ``GET /debug/slowlog``."""
         return self.slowlog.entries(n)
 
+    def debug_bundle(self) -> dict:
+        """One-shot postmortem snapshot — ``GET /debug/bundle`` (gzipped).
+
+        Privacy: carries no row data — itemset ids, counters and timings
+        only (same exposure as /metrics + /trace + /stats).
+        """
+        return {
+            "generated_at": time.time(),
+            "config": self._resolved_config(),
+            "stats": self.stats(),
+            "metrics": _om.REGISTRY.render(),
+            "traces": [t.to_dict() for t in _obs_tracer.last(16)],
+            "slowlog": self.slowlog_entries(),
+            "lastcrash": self.last_crash_report(),
+            "exec_cache_keys": {
+                fam: [list(map(str, k)) for k in exec_cache.SHARED_EXEC_CACHE.keys(fam)]
+                for fam in exec_cache.stats()["families"]
+            },
+            "flight": self.flight.stats() if self.flight is not None else None,
+        }
 
     # -- observability ------------------------------------------------------
 
@@ -1137,7 +1403,10 @@ class MiningService:
         c(
             "repro_service_device_retries_total", "Device mine retries."
         ).set_total(self.device_retries)
-        g("repro_service_ready", "1 when ready (started, breaker closed).").set(
+        c(
+            "repro_service_resumed_jobs_total", "Mine jobs resumed at recovery."
+        ).set_total(self.resumed_jobs)
+        g("repro_service_ready", "1 when ready (recovered, breaker closed).").set(
             1.0 if self.readiness()[0] else 0.0
         )
 
@@ -1203,6 +1472,13 @@ class MiningService:
             c("repro_store_compactions_total", "Store compactions.").set_total(
                 st["compactions"]
             )
+        durable = self._durable
+        if durable is not None:
+            # plain attribute reads only — DurableStore's lock is held while
+            # WAL metrics record, so taking it here would invert lock order
+            g(
+                "repro_store_snapshots_taken", "Snapshots taken (this store)."
+            ).set(durable.snapshots_taken)
 
         ss = self._sampling_stats
         c(
@@ -1242,8 +1518,16 @@ class MiningService:
             "ready": ready,
             "ready_reason": reason,
             "served": self.served,
-            # no write-ahead log yet: the section keeps its place
-            "durability": None,
+            "durability": (
+                dict(
+                    self._durable.stats(),
+                    last_recovery=self._recovery_info,
+                    job_checkpoint_levels=self.job_checkpoint_levels,
+                    resumed_jobs=self.resumed_jobs,
+                )
+                if self._durable is not None
+                else None
+            ),
             "resilience": dict(
                 self.breaker.stats(),
                 device_retries=self.device_retries,
@@ -1306,19 +1590,41 @@ class MiningService:
                 "metrics": _om.REGISTRY.snapshot(),
                 "traces": _obs_tracer.stats(),
             },
-            # per-request cost surface: the slow-mine log (the flight
-            # recorder's sections stay None until the port has one)
+            # crash forensics + per-request cost surfaces: the flight ring's
+            # write-side counters, the slow-mine log, and whether the
+            # previous incarnation died cleanly
             "forensics": {
-                "flight": None,
+                "flight": self.flight.stats() if self.flight is not None else None,
                 "slowlog": self.slowlog.stats(),
-                "last_crash": None,
+                "last_crash": (
+                    {
+                        "clean_shutdown": self.last_crash.clean_shutdown,
+                        "open_spans": len(self.last_crash.open_spans),
+                        "last_checkpoint": self.last_crash.last_checkpoint,
+                    }
+                    if self.last_crash is not None
+                    else None
+                ),
             },
         }
 
     def compact(self, keep_versions: int | None = None) -> dict:
         """Manually coalesce the store's append blocks (see
-        :meth:`DatasetStore.compact`)."""
-        return self.store.compact(keep_versions)
+        :meth:`DatasetStore.compact`). On a durable service the compacted
+        state is snapshotted immediately — compaction is not WAL-logged, so
+        folding it into a snapshot (which also resets the WAL) is what keeps
+        recovery consistent."""
+        out = self.store.compact(keep_versions)
+        if self._durable is not None:
+            self._durable.snapshot()
+        return out
+
+    def snapshot_store(self) -> int | None:
+        """Force a durable snapshot (graceful shutdown calls this so restart
+        recovery is a snapshot load, not a WAL replay)."""
+        if self._durable is None:
+            return None
+        return self._durable.snapshot()
 
     def drain(self, timeout: float | None = None) -> dict:
         """Graceful-shutdown drain: wait for in-flight runs up to
@@ -1338,6 +1644,13 @@ class MiningService:
 
     def close(self) -> None:
         self.scheduler.shutdown()
+        if self._durable is not None:
+            self._durable.close()
+        if self.flight is not None:
+            # orderly shutdown leaves a clean-shutdown marker in the ring —
+            # the next incarnation's LastCrashReport reads "nothing to see"
+            _obs_tracer.remove_listener(self.flight.span_listener)
+            self.flight.close()
         # drop the scrape collector only if this instance still owns the
         # slot (a newer service may have replaced it)
         _om.REGISTRY.unregister_collector("service", self._collector_fn)

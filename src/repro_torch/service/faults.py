@@ -1,9 +1,10 @@
-"""Fault injection for chaos-testing the mining service.
+"""Fault injection for chaos-testing the durable mining service.
 
 A :class:`FaultInjector` is a registry of named *sites* — well-known points
-in the service where real deployments fail, such as device dispatch
-(``placement.dispatch``, routed in by :func:`placement_faults`). Production
-code calls
+in the service where real deployments fail: the WAL write path
+(``wal.append``), device dispatch (``placement.dispatch``, routed in by
+:func:`placement_faults`), and the level loop of a mine run
+(``mine.level_end``, after each level checkpoint). Production code calls
 ``injector.check(site)`` at each site; with nothing armed this is a dict
 lookup and a no-op, so the seams stay in release builds.
 
@@ -14,8 +15,9 @@ Armed actions:
     the process dying at that instant — tests then build a *fresh* service
     over the same directory and assert recovery.
 ``partial``
-    Returned to the site, which carries it out itself (a write site's torn
-    half-write followed by :class:`KillPoint`).
+    Only meaningful for write sites (``wal.append``): the site performs a
+    torn half-write of the frame, fsyncs it, then raises :class:`KillPoint`
+    — the on-disk state a real power cut leaves behind.
 ``sleep``
     Block for ``seconds`` at the site — used to hold a mine run open long
     enough for a concurrent cancel/deadline to land deterministically.

@@ -261,6 +261,73 @@ def test_killed_promotion(n, eps, whole):
     svc.close()
 
 
+def _level_boundaries(data, tau, kmax):
+    """How many level checkpoints a cold mine of ``data`` saves: the
+    ``mine.level_end`` checks a promotion's exact mine makes."""
+    from repro_torch.core import prepare
+    from repro_torch.core.kyiv import mine_preprocessed
+
+    cfg = KyivConfig(tau=tau, kmax=kmax, engine="numpy")
+    seen = []
+    mine_preprocessed(prepare(data, cfg), cfg, on_level_end=lambda level, state: seen.append(level))
+    return len(seen)
+
+
+@pytest.mark.parametrize("engine", ["numpy", "torch"])
+@settings(max_examples=6, deadline=None, derandomize=True)
+@given(table_st, st.integers(1, 2))
+@example((400, 5, 6, 2, 3, 17, 0.3), 1)  # strictly subsampled: the kill lands mid-promotion
+@example((120, 4, 4, 1, 3, 5, 0.05), 2)  # the sample is the whole table
+# the whole table again, but three columns: the mine saves two checkpoints,
+# so the kill armed after two never fires (the reference's flaky case)
+@example((120, 3, 4, 4, 2, 2, 0.05), 2)
+def test_killed_refinement_converges_after_restart(engine, params, kill_after):
+    """The promotion's exact mine dies at its ``kill_after``-th level
+    checkpoint; a service rebuilt over the same ``wal_dir`` resumes the job
+    and converges to the cold mine. Whether the kill fires is decided by the
+    table, not sampled: a mine that saves no more than ``kill_after``
+    checkpoints (the whole-table example's) completes its promotion, and the
+    restart then has nothing to resume."""
+    import shutil
+    import tempfile
+
+    from repro_torch.service import FaultInjector
+
+    n, m, dom, tau, kmax, seed, eps = params
+    kmax = max(kmax, kill_after + 2)  # deep enough to die mid-promotion
+    data = np.random.default_rng(seed).integers(0, dom, size=(n, m))
+    undisturbed = _canonical(mine(data, KyivConfig(tau=tau, kmax=kmax, engine="numpy")))
+    fires = _level_boundaries(data, tau, kmax) > kill_after
+
+    d = tempfile.mkdtemp(prefix="sampling-chaos-")
+    try:
+        inj = FaultInjector()
+        svc = MiningService(engine=engine, device="cpu", wal_dir=d,
+                            fault_injector=inj, sampling=SMALL)
+        svc.append(data)
+        inj.arm("mine.level_end", action="raise",
+                exc=KillPoint("mid-refine"), after=kill_after)
+        r = svc.mine(tau=tau, kmax=kmax, mode="approx", epsilon=eps)
+        assert r.source == "approx"
+        svc.scheduler.drain(timeout=300)
+        # the promotion died; the fast answer survived, unpromoted
+        assert svc.stats()["sampling"]["refine_failures"] == int(fires)
+        svc.close()
+
+        svc2 = MiningService(engine=engine, device="cpu", wal_dir=d, sampling=SMALL)
+        assert svc2.stats()["durability"]["resumed_jobs"] == int(fires)
+        exact = svc2.mine(tau=tau, kmax=kmax)
+        assert _canonical(exact.result) == undisturbed
+        if fires:
+            assert exact.info["resumed_from_level"] == kill_after + 3
+        approx = svc2.mine(tau=tau, kmax=kmax, mode="approx", epsilon=eps)
+        assert approx.info["confidence"] == 1.0
+        assert _canonical(approx.result) == undisturbed
+        svc2.close()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def test_mode_and_epsilon_validation():
     svc = MiningService.from_dataset(_rand(11, 50, 3, 4), engine="numpy")
     with pytest.raises(ValueError):

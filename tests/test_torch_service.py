@@ -545,7 +545,7 @@ def test_http_metrics_lint_clean_and_trace_retrievable(http_service):
 @pytest.mark.parametrize(
     "path,payload,code",
     [("/nope", None, 404), ("/append", {"rows": []}, 400), ("/mine?mode=fast", None, 400),
-     ("/debug/bundle", None, 404), ("/debug/lastcrash", None, 404),
+     ("/debug/nosuch", None, 404), ("/debug/lastcrash/x", None, 404),
      ("/trace?id=missing", None, 404)],
 )
 def test_http_error_codes(http_service, path, payload, code):
