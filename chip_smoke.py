@@ -77,7 +77,31 @@ machine: the kernels build from the sources in the checkout into
    record, reports the clean stop, serves ``/debug/bundle`` (gzipped JSON),
    and answers a durable cold mine, timed beside phase 8's plain one with
    each level checkpoint's bytes and seconds (from the flight ring);
-10. coverage-kernel: both coverage kernels (scanning and anchored) against
+10. mesh: the word-sharded mesh (``core.sharded``) on phase 3's Poker-hand
+   mine, not cut: ``make_sharded_pipeline`` on a 2x2 mesh (pairs over
+   ``data``, words over ``model``) with the device frontier, again with its
+   cross-shard sums timed, with the host frontier, and on a 2x1 mesh; each
+   must give phase 3's itemsets, per-level stats and level_bytes, launching
+   the unfused kernels (rows 3-4) once per word shard and batch on the 2x2
+   mesh and the fused ones (rows 1-2) on the 2x1 mesh. The entries are
+   distinct cards where there are four, else cuda:0 four times (one tensor
+   and one launch per entry all the same). Then the CLI's ``--sharded
+   --mesh 2x2`` in a subprocess, phase 3's risk profile through the mesh's
+   coverage dispatch (equal to phase 7's), and ``MiningService`` on a 2x2
+   ``MeshPlacement``: cold, an append of 1,341 rows, incremental, each
+   equal to phase 8's in-process mines; wall times, launches per shard,
+   the sums' time and the peak memory printed;
+11. fleet: two ``serve_miner`` processes on the card (``--num-processes 2``,
+   ``--device cuda:0``, a ``TCPStore`` on a free port), each holding its
+   round-robin word stripes; process 0 preloads phase 8's CSV (which
+   crosses the command bus to process 1) and keeps its shadow. Over HTTP a
+   cold mine, an append of 1,341 rows and the incremental mine, and
+   ``/risk``, each equal to phase 8's in-process answers; ``/stats`` with no
+   degradation and the collective's rounds, seconds and payload bytes (per
+   level too). Then process 1 is killed with SIGKILL: the next append
+   times out (``--fleet-timeout-s 10``) and the shadow, on the card,
+   answers the next mine exactly; each process's peak memory printed;
+12. coverage-kernel: both coverage kernels (scanning and anchored) against
    the plain versions on the card, bit for bit, over widths, set sizes,
    batch sizes, sparse and sign-bit rows and weights that overflow int32
    (640 checks), and against the numpy host engine on small inputs; the
@@ -89,7 +113,7 @@ machine: the kernels build from the sources in the checkout into
    and the batches the Poker-hand mine's risk profile gives the dispatch
    (its quasi-identifiers by size, padded as ``CoverageEngine`` pads them:
    the scanning kernel), timed beside their bound;
-11. tiled: the group-tiled count kernel against its plain version on the
+13. tiled: the group-tiled count kernel against its plain version on the
    card, bit for bit, over block sizes, widths and group layouts (T from 1
    to a few thousand block pairs), then its path at full width: the level-3
    frontier of phase 3's table (66,810 rows in 3,066 prefix groups), from
@@ -124,6 +148,7 @@ Any mismatch, build failure or missing card exits non-zero before that line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -455,6 +480,29 @@ def _bound_ms(name, bits, pairs, rates) -> dict:
     return _bound(read + written, OPS_PER_WORD * m * w, m * w / HARLEY_SEAL_WORDS, rates)
 
 
+def _path_shapes(n_words: int, batch_bucket: int) -> list[tuple]:
+    """(label, kernels, W, M) of the batches that the multi-device paths
+    give rows 1-4 on the Poker-hand table: a 2x1 mesh's pair block at the
+    full width (rows 1-2), a 2x2 mesh's word shard and pair block, and the
+    local stripes of process 0 of a two-process fleet at that width's batch
+    cap (rows 3-4)."""
+    from repro_torch.core.balance import balanced_blocks
+    from repro_torch.core.bitops import padded_words
+    from repro_torch.core.sharded import shard_width
+    from repro_torch.kernels.intersect import next_bucket
+    from repro_torch.service.store import DatasetStore
+
+    store = DatasetStore(n_cols=1, shard=(0, 2))
+    store.append(np.zeros((n_words * 32, 1), dtype=np.int64))
+    fleet_w = padded_words(store.stats()["n_words"])
+    block = balanced_blocks(batch_bucket, 2)[1]
+    fused = ("intersect_classify_write_indexed", "intersect_classify_count_indexed")
+    unfused = ("intersect_write_indexed", "intersect_count_indexed")
+    return [("mesh 2x1", fused, padded_words(n_words), block),
+            ("mesh 2x2", unfused, shard_width(n_words, 2), block),
+            ("fleet", unfused, fleet_w, next_bucket(max(4096, (1 << 28) // fleet_w)))]
+
+
 def phase_kernels(device, n_words: int, batch_bucket: int, rates: dict):
     from repro_torch.core.bitops import padded_words
 
@@ -488,6 +536,28 @@ def phase_kernels(device, n_words: int, batch_bucket: int, rates: dict):
                         checks += 1
         del big, unaligned, small
         torch.cuda.empty_cache()
+
+    path_checks = {}
+    for label, names, w, m in _path_shapes(n_words, batch_bucket):
+        n = 0
+        for write in (True, False):
+            bits, pairs, pc = _kernel_inputs(parents[write], w, m, seed=21, device=device)
+            for name in names:
+                if KERNELS[name][1] != write:
+                    continue
+                for tau in (0, 1, 5):
+                    for mm in (0, 1, m):
+                        kern, plain = _call(name, bits, pairs[:mm].contiguous(), pc, tau)
+                        err = _max_abs_err(kern(), plain())
+                        if err:
+                            fail(f"{name} at the {label} shape W={w} M={mm} tau={tau}: "
+                                 f"max_abs_err={err}")
+                        n += 1
+            del bits, pairs, pc
+            torch.cuda.empty_cache()
+        path_checks[label] = {"W": w, "M": m, "checks": n}
+        checks += n
+    print("  kernels at the mesh and fleet shapes: " + json.dumps(path_checks), flush=True)
 
     rows = {}
     for name, (_, write, classify) in KERNELS.items():
@@ -746,7 +816,8 @@ def phase_privacy(device, poker_res):
     profile of phase 3's Poker-hand mine (QIs of frequent items: the
     scanning kernel), then the planner on the card. Returns both coverage
     kernels' launches on the path, the table's host bitsets and its size-3
-    quasi-identifiers (the kernel timing's sparse case)."""
+    quasi-identifiers (the kernel timing's sparse case), and the Poker-hand
+    mine's profile (phase mesh holds the mesh's against it)."""
     from repro_torch.core import DevicePlacement, HostPlacement, KyivConfig, prepare
     from repro_torch.core.kyiv import mine_preprocessed
     from repro_torch.data.synth import exposed_dataset
@@ -840,7 +911,7 @@ def phase_privacy(device, poker_res):
                  "numpy_wall_s": host_plan_s,
                  "equal_to_numpy_plan": plan.as_dict(None) == host_plan.as_dict(None)},
     }), flush=True)
-    return launches, table_bits, qi3
+    return launches, table_bits, qi3, poker_profile
 
 
 # -- phase service -----------------------------------------------------------
@@ -1544,6 +1615,420 @@ def phase_durability(device, poker_res, svc: dict):
         default=str), flush=True)
 
 
+# -- phase mesh --------------------------------------------------------------
+
+# a 2x2 mesh on one card holds each level's parents twice (level 3's: 2 x
+# 8.35 GB), the stored children once more while the next level's parents
+# are assembled, and two batches of pair-sharded children
+MESH_FREE_BYTES = 40 * 10**9
+
+
+def _mesh_devices(n: int) -> tuple[list, str]:
+    """n distinct cards where there are n, else cuda:0 n times."""
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)], f"{n} distinct cards"
+    return [torch.device("cuda", 0)] * n, f"cuda:0 repeated {n} times"
+
+
+def _sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _peaks() -> dict:
+    return {f"cuda:{i}": torch.cuda.max_memory_allocated(i) for i in range(torch.cuda.device_count())}
+
+
+def _reset_peaks() -> None:
+    torch.cuda.empty_cache()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+
+
+def _shard_counts(placement, site: str) -> dict:
+    return {f"{d},{w}": n for (s, d, w), n in sorted(placement.shard_launches.items()) if s == site}
+
+
+class _CheckedShards:
+    """Instruments one mesh mine: every shard call of rows 3-4
+    (``core.sharded._local_intersect``) is held against the plain version on
+    the same inputs, bit for bit, and every cross-shard sum
+    (``core.sharded._sum_to``) is timed on the host clock, each ending in a
+    device sync. The check adds no kernel launch. Install it before the
+    pipeline factory is built (the level steps bind their shard body then)."""
+
+    def __init__(self):
+        import repro_torch.core.sharded as sh
+
+        self.sh = sh
+        self.real = (sh._local_intersect, sh._sum_to)
+        self.calls, self.shapes = 0, set()
+        self.sum_s, self.sums = 0.0, 0
+
+    def _local(self, bits, pairs, pc, tau, *, write_children, **kw):
+        from repro_torch.kernels.intersect import ref as R
+
+        child, cnt = self.real[0](bits, pairs, pc, tau, write_children=write_children, **kw)
+        err = 0
+        for lo in range(0, int(pairs.shape[0]), 2048):  # bounds the plain version's temporaries
+            sub = pairs[lo : lo + 2048]
+            if write_children:
+                err = max(err, _max_abs_err((child[lo : lo + 2048], cnt[lo : lo + 2048]),
+                                            R.intersect_pairs_ref(bits, sub)))
+            else:
+                err = max(err, _max_abs_err((cnt[lo : lo + 2048],),
+                                            (R.intersect_count_ref(bits, sub),)))
+        if err:
+            fail(f"mesh: a shard's {'write' if write_children else 'count'} call "
+                 f"(W={bits.shape[1]}, M={pairs.shape[0]}) differs from the plain version: "
+                 f"max_abs_err={err}")
+        self.calls += 1
+        self.shapes.add((bool(write_children), int(bits.shape[1]), int(pairs.shape[0])))
+        return child, cnt
+
+    def _sum(self, parts, dev):
+        devs = {p.device for p in parts} | {torch.device(dev)}
+        for d in devs:
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        out = self.real[1](parts, dev)
+        for d in devs:
+            torch.cuda.synchronize(d)
+        self.sum_s += time.perf_counter() - t0
+        self.sums += 1
+        return out
+
+    def __enter__(self):
+        self.sh._local_intersect, self.sh._sum_to = self._local, self._sum
+        return self
+
+    def __exit__(self, *exc):
+        self.sh._local_intersect, self.sh._sum_to = self.real
+
+
+def phase_mesh(device, prep, poker_res, main_wall_s: float, poker_profile, svc: dict) -> dict:
+    """The word-sharded mesh on the Poker-hand 1M mine of phase main (tau=1,
+    kmax=4, not cut): ``make_sharded_pipeline`` on a 2x2 mesh with the
+    device frontier, with the host frontier, and on a 2x1 mesh (one word
+    shard: the fused kernels); every mine must give phase main's itemsets,
+    per-level stats and level_bytes. One more 2x2 mine holds every shard
+    call of rows 3-4 against the plain version and times the cross-shard
+    sums (``_CheckedShards``); its wall time is not the mesh's.
+    Then ``python -m repro_torch.launch.mine --sharded --mesh 2x2`` in a
+    subprocess, phase main's risk profile through the mesh's coverage
+    dispatch (equal to phase privacy's), and ``MiningService`` on a 2x2
+    ``MeshPlacement``: a cold mine, an append of 1,341 rows, the incremental
+    mine, each equal to phase service's in-process mines. The mesh's
+    entries are distinct cards where there are four, else cuda:0 four times.
+    Returns the launches of rows 1-4 and 10 in this phase."""
+    from repro_torch.core import KyivConfig
+    from repro_torch.core.kyiv import mine_preprocessed
+    from repro_torch.core.placement import MeshPlacement
+    from repro_torch.core.sharded import make_sharded_pipeline
+    from repro_torch.kernels import coverage as C
+    from repro_torch.kernels import intersect as I
+    from repro_torch.launch.mesh import mesh_from_spec
+    from repro_torch.privacy import risk_profile
+    from repro_torch.service import MiningService
+
+    t_phase = time.perf_counter()
+    _reset_peaks()
+    free = torch.cuda.mem_get_info(device)[0]
+    if free < MESH_FREE_BYTES:
+        fail(f"mesh: {free / 1e9:.1f} GB free on the card, the 2x2 mesh needs {MESH_FREE_BYTES / 1e9:.0f}")
+    dev = str(device)
+    cfg = KyivConfig(tau=1, kmax=4, engine="cuda", device=dev)
+    devs4, kind4 = _mesh_devices(4)
+    devs2, kind2 = _mesh_devices(2)
+    print(f"  mesh: 2x2 entries are {kind4}; 2x1 entries are {kind2}", flush=True)
+    mesh22 = mesh_from_spec("2x2", devices=devs4)
+    mesh21 = mesh_from_spec("2x1", devices=devs2)
+    phase_launches = {k: 0 for k in I.LAUNCHES}
+    out = {"entries_2x2": kind4, "entries_2x1": kind2, "main_wall_s": main_wall_s, "mines": []}
+    runs = [("2x2 device frontier", mesh22, True, False),
+            ("2x2 host frontier", mesh22, False, False),
+            ("2x1 device frontier", mesh21, True, False),
+            ("2x2 device frontier, checked", mesh22, True, True)]
+    for label, mesh, front, checked in runs:
+        check = _CheckedShards() if checked else contextlib.nullcontext()
+        with check:
+            factory = make_sharded_pipeline(mesh, word_axis="model", engine="cuda",
+                                            device_frontier=front)
+        placement = factory.placement
+        _reset_peaks()
+        I.reset_launches()
+        t0 = time.perf_counter()
+        with check:
+            res = mine_preprocessed(prep, cfg, pipeline_factory=factory)
+            _sync_all()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in I.LAUNCHES.items() if v}
+        for k, v in launches.items():
+            phase_launches[k] += v
+        _same_mine(res, poker_res, f"mesh {label}")
+        per_shard = _shard_counts(placement, "dispatch")
+        rows = (("intersect_classify_write_indexed", "intersect_classify_count_indexed")
+                if placement.word_shards == 1 else ("intersect_write_indexed", "intersect_count_indexed"))
+        others = [k for k in launches if k not in rows]
+        if others or any(launches.get(k, 0) == 0 for k in rows):
+            fail(f"mesh {label}: launched {launches}, expected only {rows}")
+        if sum(launches.values()) != sum(per_shard.values()) or len(set(per_shard.values())) != 1:
+            fail(f"mesh {label}: {launches} launches against per-shard dispatches {per_shard}")
+        rec = {"mesh": label, "wall_s": wall, "mine_wall_s": res.wall_time, "launches": launches,
+               "launches_per_shard": per_shard, "peak_bytes": _peaks(),
+               "level_s": [s.time_total for s in res.stats]}
+        if checked:
+            if check.calls != sum(per_shard.values()) or check.sums != check.calls // 2:
+                fail(f"mesh {label}: {check.calls} shard calls checked and {check.sums} sums "
+                     f"against per-shard dispatches {per_shard}")
+            rec.update({"calls_held_against_plain": check.calls,
+                        "shapes_held": sorted(check.shapes), "sum_s": check.sum_s,
+                        "sum_calls": check.sums})
+        out["mines"].append(rec)
+        print(f"  mesh {label}: {wall:.3f} s against phase main's {main_wall_s:.3f} s; "
+              + json.dumps({k: v for k, v in rec.items() if k not in ("mesh", "wall_s")}), flush=True)
+        del res, factory, placement
+    _reset_peaks()
+
+    # the CLI, in a subprocess
+    tmp = ROOT / "build" / "smoke_mesh"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    cli_dev = "cuda" if torch.cuda.device_count() >= 4 else "cuda:0"
+    cmd = [sys.executable, "-m", "repro_torch.launch.mine", "--sharded", "--mesh", "2x2",
+           "--device", cli_dev, "--dataset", "poker", "--n", "1000000", "--tau", "1",
+           "--kmax", "4", "--out", str(tmp / "cli.json")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                          capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0 or "sharded over mesh {'data': 2, 'model': 2}" not in proc.stdout:
+        fail(f"mesh CLI: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    got = json.loads((tmp / "cli.json").read_text())
+    if sorted((tuple(s["items"]), s["count"]) for s in got["itemsets"]) != sorted(poker_res.itemsets):
+        fail("mesh CLI: itemsets differ from phase main's")
+    if [tuple(s[k] for k in ("k", "candidates", "support_pruned", "bound_pruned", "intersections",
+                             "emitted", "skipped_absent_uniform", "stored")) for s in got["stats"]] \
+            != list(map(stat_tuple, poker_res.stats)):
+        fail("mesh CLI: per-level stats differ from phase main's")
+    out["cli_s"] = cli_s
+    print(f"  mesh CLI --sharded --mesh 2x2 --device {cli_dev}: {cli_s:.2f} s (the subprocess, "
+          f"table generation included): {proc.stdout.splitlines()[0]}", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    # the risk profile through the mesh's coverage dispatch
+    cov_placement = MeshPlacement(mesh22, word_axis="model", engine="cuda")
+    C.reset_launches()
+    t0 = time.perf_counter()
+    prof = risk_profile(poker_res, placement=cov_placement)
+    _sync_all()
+    out["risk_profile_s"] = time.perf_counter() - t0
+    _same_profile(prof, poker_profile, "mesh risk profile against phase privacy's")
+    cov = {k: v for k, v in C.LAUNCHES.items() if v}
+    cov_shards = _shard_counts(cov_placement, "coverage")
+    if not cov or sum(cov.values()) != sum(cov_shards.values()):
+        fail(f"mesh risk: coverage launches {cov} against per-shard dispatches {cov_shards}")
+    for k, v in cov.items():
+        phase_launches[k] = phase_launches.get(k, 0) + v
+    out["risk"] = {"launches": cov, "launches_per_shard": cov_shards}
+    print(f"  mesh risk profile: {out['risk_profile_s']:.3f} s; " + json.dumps(out["risk"]), flush=True)
+    del prof, cov_placement
+
+    # the resident service on the mesh
+    _reset_peaks()
+    svc_mesh = MiningService(placement=MeshPlacement(mesh22, word_axis="model", engine="cuda"))
+    try:
+        wall = {}
+        t0 = time.perf_counter()
+        svc_mesh.append(svc["table"])
+        wall["append_table_s"] = time.perf_counter() - t0
+        I.reset_launches()
+        t0 = time.perf_counter()
+        cold = svc_mesh.mine(tau=1, kmax=4)
+        wall["cold_s"] = time.perf_counter() - t0
+        if cold.source != "cold" or _value_sets(cold.result) != _value_sets(svc["want"]):
+            fail(f"mesh service cold: source {cold.source}")
+        part = svc["extra"][:SERVICE_INCREMENTAL_ROWS]
+        svc_mesh.append(part)
+        t0 = time.perf_counter()
+        inc = svc_mesh.mine(tau=1, kmax=4)
+        wall["incremental_s"] = time.perf_counter() - t0
+        if inc.source != "incremental" or _value_sets(inc.result) != _value_sets(svc["cold_all"]):
+            fail(f"mesh service incremental: source {inc.source}")
+        launches = {k: v for k, v in I.LAUNCHES.items() if v}
+        for k, v in launches.items():
+            phase_launches[k] += v
+        desc = svc_mesh.placement.describe()
+        out["service"] = {**wall, "launches": launches,
+                          "launches_per_shard": _shard_counts(svc_mesh.placement, "dispatch"),
+                          "placement": {k: desc[k] for k in ("mesh_shape", "distinct_devices",
+                                                              "mesh_entries")},
+                          "peak_bytes": _peaks()}
+        print("  mesh service: " + json.dumps(out["service"]), flush=True)
+    finally:
+        svc_mesh.close()
+    del svc_mesh
+    _reset_peaks()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("phase mesh: ok " + json.dumps({"dataset": "poker_like(n=1000000, m=10, seed=0)", "tau": 1,
+                                          "kmax": 4, **out}), flush=True)
+    return phase_launches
+
+
+# -- phase fleet -------------------------------------------------------------
+
+
+def _peer_log(log_path: Path) -> tuple[int | None, dict]:
+    """The device peak and kernel launches a fleet peer logged after its
+    last command."""
+    peak, launches = None, {}
+    for line in log_path.read_text().splitlines():
+        m = re.search(r"fleet peer p\d+ ran \S+ \(\d+ ops, device peak (\w+) bytes, "
+                      r"launches (\{[^{}]*\})\)", line)
+        if m:
+            peak = int(m.group(1)) if m.group(1).isdigit() else None
+            launches = json.loads(m.group(2))
+    return peak, launches
+
+
+def _launch_env(log_path: Path) -> dict | None:
+    """The launch environment a ``serve_miner`` process logged at startup."""
+    m = re.search(r"launch environment (\{[^{}]*\})", log_path.read_text())
+    return json.loads(m.group(1)) if m else None
+
+
+def phase_fleet(device, svc: dict) -> dict:
+    """The lockstep fleet: two ``serve_miner`` processes on the card
+    (``--num-processes 2``, ``--device cuda:0``, a TCPStore on a free local
+    port). Process 0 preloads phase service's CSV, which crosses the command
+    bus to process 1 in one append round, and keeps its shadow. Over HTTP:
+    a cold mine (tau=1, kmax=4), an append of 1,341 rows and the incremental
+    mine, ``/risk``, each equal to phase service's in-process answers;
+    ``/stats`` with no degradation and the collective's rounds, seconds and
+    payload bytes. Then process 1 is killed with SIGKILL; after another
+    append the next mine must come from the shadow, exactly, with
+    ``resilience.fleet`` degraded by a ``FleetTimeout``. Returns the
+    launches of both processes, added."""
+    dev = str(device)
+    t_phase = time.perf_counter()
+    tmp = svc["tmp"]
+    logs = [tmp / "fleet0.log", tmp / "fleet1.log"]
+    http_port, coord = _free_port(), _free_port()
+    common = ["--device", "cuda:0" if dev.startswith("cuda") else dev, "--num-processes", "2",
+              "--coordinator-address", f"127.0.0.1:{coord}", "--fleet-timeout-s", "10"]
+    out: dict = {}
+    t0 = time.perf_counter()
+    procs = [_start_server(http_port, svc["csv"], logs[0], common + ["--process-id", "0"]),
+             _start_server(_free_port(), None, logs[1], common + ["--process-id", "1"])]
+    try:
+        out["preload_s"] = _wait_ready("fleet", procs[0], http_port, logs[0], t0)
+        if procs[1].poll() is not None:
+            fail("fleet: the peer exited:\n" + logs[1].read_text()[-4000:])
+
+        def ask(label, path, payload=None):
+            t = time.perf_counter()
+            code, body = _http(http_port, path, payload)
+            dt = time.perf_counter() - t
+            if code != 200:
+                fail(f"fleet {label}: HTTP {code}: {body}")
+            out[f"{label}_s"] = dt
+            return body
+
+        st = ask("stats_after_preload", "/stats")
+        out["preload_rounds"] = st["resilience"]["fleet"]["collective"]
+        cold = ask("cold", "/mine?tau=1&kmax=4")
+        if cold["source"] != "cold" or _value_sets_json(cold) != _value_sets(svc["want"]):
+            fail(f"fleet cold: source {cold['source']}, {cold['n_itemsets']} itemsets")
+        st = ask("stats_after_cold", "/stats")
+        fl = st["resilience"]["fleet"]
+        if fl["degraded"] or fl["nproc"] != 2:
+            fail(f"fleet: degraded after the cold mine: {fl}")
+        out["cold_levels"] = st["placement"]["level_reduces"]
+        out["cold_collective"] = fl["collective"]
+        launches = st["launches"]["intersect"]
+        if not launches["intersect_write_indexed"] or not launches["intersect_count_indexed"] or \
+                launches["intersect_classify_write_indexed"] or launches["intersect_classify_count_indexed"]:
+            fail(f"fleet: the cold mine must launch the unfused kernels only: {launches}")
+        print(f"  fleet: ready after {out['preload_s']:.2f} s (1,000,000 rows, the bus append included); "
+              f"cold mine {out['cold_s']:.3f} s against phase service's {svc['plain_cold_s']:.3f} s; "
+              f"all-reduces per level {json.dumps(out['cold_levels'])}", flush=True)
+
+        part = svc["extra"][:SERVICE_INCREMENTAL_ROWS]
+        ask("append", "/append", {"rows": part.tolist()})
+        inc = ask("incremental", "/mine?tau=1&kmax=4")
+        if inc["source"] != "incremental" or _value_sets_json(inc) != _value_sets(svc["cold_all"]):
+            fail(f"fleet incremental: source {inc['source']}, {inc['n_itemsets']} itemsets")
+        risk = ask("risk", "/risk?tau=1&kmax=4")
+        drop = ("version", "source", "latency_s", "trace_id")
+        if {k: v for k, v in risk.items() if k not in drop} != svc["risk"]:
+            fail("fleet risk: differs from phase service's in-process risk profile")
+        st = ask("stats_healthy", "/stats")
+        fl = st["resilience"]["fleet"]
+        if fl["degraded"] or fl["collective"]["rounds"] <= 0:
+            fail(f"fleet: {fl}")
+        all_launches = {k: v for fam in st["launches"].values() for k, v in fam.items() if v}
+        if not sum(st["launches"]["coverage"].values()):
+            fail(f"fleet: /risk launched no coverage kernel: {st['launches']}")
+        out["healthy"] = {"collective": fl["collective"], "replicated_ops": fl["replicated_ops"],
+                          "p0_peak_bytes": fl["device_peak_bytes"], "launches_p0": all_launches}
+        print(f"  fleet: incremental {out['incremental_s']:.3f} s, risk {out['risk_s']:.3f} s; "
+              + json.dumps(out["healthy"]), flush=True)
+
+        # a peer dies: the next replicated op times out and the shadow answers
+        procs[1].send_signal(signal.SIGKILL)
+        procs[1].wait(timeout=60)
+        # the peer logs after each command; read once it can write no more
+        peak1, launches1 = _peer_log(logs[1])
+        if not launches1.get("intersect_write_indexed") or \
+                not launches1.get("intersect_count_indexed") or \
+                not launches1.get("coverage_accumulate_indexed", 0) + launches1.get(
+                    "coverage_accumulate_anchored", 0):
+            fail(f"fleet: the peer did not launch rows 3-4 and a coverage kernel: {launches1}")
+        out["healthy"].update({"p1_peak_bytes": peak1, "launches_p1": launches1,
+                               "launch_env": [_launch_env(log) for log in logs]})
+        print("  fleet: peer p1 " + json.dumps({k: out["healthy"][k] for k in
+                                                ("p1_peak_bytes", "launches_p1", "launch_env")}),
+              flush=True)
+        more = svc["extra"][SERVICE_INCREMENTAL_ROWS : SERVICE_INCREMENTAL_ROWS + 100]
+        t0 = time.perf_counter()
+        ask("append_after_kill", "/append", {"rows": more.tolist()})
+        after = ask("mine_after_kill", "/mine?tau=1&kmax=4")
+        out["degrade_s"] = time.perf_counter() - t0
+        st = ask("stats_degraded", "/stats")
+        fl = st["resilience"]["fleet"]
+        if not fl["degraded"] or "FleetTimeout" not in (fl["degraded_reason"] or ""):
+            fail(f"fleet: not degraded by a FleetTimeout after the kill: {fl}")
+        if st["placement"].get("engine") != "cuda" or st["placement"].get("backend") != "cuda":
+            fail(f"fleet: the shadow does not mine on the card: {st['placement']}")
+        from repro_torch.core import KyivConfig, prepare
+        from repro_torch.core.kyiv import mine_preprocessed
+
+        rows = np.concatenate([svc["table"], part, more])
+        cfg = KyivConfig(tau=1, kmax=4, engine="cuda", device=dev)
+        want = mine_preprocessed(prepare(rows, cfg), cfg)
+        if _value_sets_json(after) != _value_sets(want):
+            fail(f"fleet: the shadow's answer after the kill differs ({after['n_itemsets']} itemsets "
+                 f"against {len(want.itemsets)})")
+        # process 0's allocator peak now includes its shadow's cold mine
+        out["degraded"] = {"reason": fl["degraded_reason"][:120], "source": after["source"],
+                           "p0_peak_bytes": fl["device_peak_bytes"]}
+        print(f"  fleet: peer killed; append + mine answered by the shadow in {out['degrade_s']:.3f} s "
+              f"(--fleet-timeout-s 10); " + json.dumps(out["degraded"]), flush=True)
+        _stop_server("fleet", procs[0], logs[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("phase fleet: ok " + json.dumps({"dataset": "poker_like(n=1000000, m=10, seed=0) via CSV",
+                                           "processes": 2, "tau": 1, "kmax": 4, **out}), flush=True)
+    both = dict(out["healthy"]["launches_p0"])
+    for k, v in out["healthy"]["launches_p1"].items():
+        both[k] = both.get(k, 0) + v
+    return both
+
+
 # -- phase coverage-kernel -------------------------------------------------
 
 
@@ -2012,6 +2497,7 @@ def main() -> None:
 
     timing = phase_kernels(device, n_words, next_bucket(batch_cap), rates)
     launches, *poker = phase_main(device)
+    main_wall_s = poker[1].wall_time
     connect_launches, *connect = phase_host_classified(device)
     launches.update({k: v for k, v in connect_launches.items()
                      if k in ("intersect_write_indexed", "intersect_count_indexed")})
@@ -2019,13 +2505,20 @@ def main() -> None:
     poker_prep, poker_res = poker
     del poker, connect
     phase_checkpoint(device)
-    cov_launches, table_bits, qi3 = phase_privacy(device, poker_res)
+    cov_launches, table_bits, qi3, poker_profile = phase_privacy(device, poker_res)
     launches.update(cov_launches)
     torch.cuda.empty_cache()
     service = phase_service(device, poker_res)
     phase_durability(device, poker_res, service)
+    # the multi-device and multi-process paths: their launches add to the
+    # main path's (rows 1-4 and both coverage kernels)
+    for name, n in phase_mesh(device, poker_prep, poker_res, main_wall_s, poker_profile,
+                              service).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in phase_fleet(device, service).items():
+        launches[name] = launches.get(name, 0) + n
     shutil.rmtree(service["tmp"], ignore_errors=True)
-    del service
+    del service, poker_profile
     cov = phase_coverage_kernel(device, table_bits, qi3, rates, poker_res)
     del table_bits, qi3, poker_res
     tiled = phase_tiled(device, poker_prep, rates)

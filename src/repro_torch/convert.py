@@ -92,6 +92,6 @@ def store_to_numpy(store) -> dict:
 
 def store_from_numpy(d: dict, *, placement=None, **kw):
     """This package's ``DatasetStore`` from the numpy form; ``placement``
-    (and ``compact_threshold`` / ``keep_versions``) as for
+    (and ``compact_threshold`` / ``keep_versions`` / ``shard``) as for
     ``DatasetStore.from_state``."""
     return DatasetStore.from_state(d, placement=placement, **kw)

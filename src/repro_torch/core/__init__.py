@@ -12,6 +12,7 @@ from .items import ItemTable, bits_popcount, bits_to_rows, itemize, pack_rows_to
 from .placement import (
     DevicePlacement,
     HostPlacement,
+    MeshPlacement,
     is_device_failure,
     make_placement,
     resolve_placement,
@@ -52,6 +53,7 @@ __all__ = [
     "bits_to_rows",
     "HostPlacement",
     "DevicePlacement",
+    "MeshPlacement",
     "is_device_failure",
     "make_placement",
     "resolve_placement",

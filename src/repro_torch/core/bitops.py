@@ -75,7 +75,11 @@ def device_bits(bits: np.ndarray, device) -> torch.Tensor:
 
 
 def host_bits(bits, n_words: int) -> np.ndarray:
-    """Host uint32 view of device (or host) bitsets, word padding stripped."""
+    """Host uint32 view of device (or host) bitsets, word padding stripped.
+    Anything else converts through ``np.asarray`` (a mesh's word-sharded
+    matrix, ``core.sharded.MeshBits``, gives its host words that way)."""
     if isinstance(bits, torch.Tensor):
         bits = bits.cpu().numpy().view(np.uint32)
+    else:
+        bits = np.asarray(bits)
     return np.ascontiguousarray(bits[:, :n_words])

@@ -42,7 +42,6 @@ import time
 from typing import Any
 
 import numpy as np
-import torch
 
 from ..kernels.intersect.ref import CLASS_EMIT, CLASS_STORE
 from ..obs import cost as _obs_cost
@@ -206,6 +205,8 @@ def _device_frontier_capable(placement, pipe, config) -> bool:
     return (
         placement.kind != "host"
         and config.device_frontier
+        # a placement may veto per backend (a CPU mesh, the fleet)
+        and getattr(placement, "use_device_frontier", True)
         # the pipeline's own flag: the partition pass consumes class codes
         and pipe.fused_classify
     )
@@ -594,8 +595,7 @@ def _advance_device(
             new_pairs.append(pairs_h[store_rows])
             new_counts.append(cnt_h[store_rows])
             # child bitsets stay on the device: gather the store segment
-            rows_d = torch.from_numpy(store_rows.astype(np.int64)).to(child_d.device)
-            new_children.append(child_d[rows_d])
+            new_children.append(placement.take_rows(child_d, store_rows))
 
     pending = None
     for lo, hi, n_pairs in iter_group_spans(sizes, batch_pairs):
@@ -673,7 +673,7 @@ def _advance_device(
         nxt_itemsets = _candidate_lpos(frontier, sp)
         nxt_counts = np.concatenate(new_counts, axis=0)
         # the next level's bitsets, assembled device to device
-        nxt_bits = new_children[0] if len(new_children) == 1 else torch.cat(new_children)
+        nxt_bits = placement.cat_rows(new_children)
         new_children.clear()
     else:
         nxt_itemsets = np.zeros((0, k), dtype=np.int32)

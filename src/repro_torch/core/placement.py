@@ -33,6 +33,14 @@ Implementations:
   Parent bitsets go to the device once per level as int32 words, their word
   axis padded with zero words to a multiple of 4 (16-byte rows for the
   kernels' 128-bit loads); every batch then ships only its pair list.
+* :class:`MeshPlacement` — a ``(data, model)`` mesh of torch devices
+  (``launch.mesh``): pairs shard over ``data``, bitset words over ``model``,
+  and each pair shard sums its word shards' partial popcounts before it
+  classifies (``core.sharded``). An entry may repeat a device.
+
+Every placement also moves rows of its own bitset matrices
+(:meth:`take_rows`, :meth:`cat_rows`): the level loop gathers stored
+children with them, and the service its resident level 1.
 
 ``make_placement`` / ``resolve_placement`` are the one factory the miner,
 the service and the launchers go through; :func:`is_device_failure` tells
@@ -41,6 +49,7 @@ the service's device retries a device fault from a bug.
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import numpy as np
@@ -55,12 +64,14 @@ from ..kernels.intersect import ops as _ops
 from ..obs import cost as _obs_cost
 from ..obs import metrics as _om
 from .bitops import device_bits, popcount_rows
+from . import sharded as _sh
 from .prefix import CandidateBatch, Level, generate_candidates, group_reps
 from .support import ItemsetIndex, support_test
 
 __all__ = [
     "HostPlacement",
     "DevicePlacement",
+    "MeshPlacement",
     "is_device_failure",
     "make_placement",
     "resolve_placement",
@@ -93,9 +104,15 @@ _DISPATCHES = _om.counter(
 )
 
 
-def _guard(site: str) -> None:
+def count_dispatch(site: str, kind: str) -> None:
+    """One placement-layer dispatch at ``site`` ("dispatch", "coverage",
+    "frontier") by a placement of ``kind`` (``repro_placement_dispatch_total``)."""
+    _DISPATCHES.inc(site=site, kind=kind)
+
+
+def _guard(site: str, kind: str = "device") -> None:
     # count first: a dispatch that the fault hook kills still happened
-    _DISPATCHES.inc(site=site, kind="device")
+    count_dispatch(site, kind)
     _obs_cost.add(device_dispatches=1)
     if _fault_hook is not None:
         _fault_hook(site)
@@ -149,6 +166,12 @@ class HostPlacement:
 
     def put_bits(self, bits: np.ndarray):
         return np.ascontiguousarray(bits)
+
+    def take_rows(self, bits, rows: np.ndarray):
+        return np.asarray(bits)[np.asarray(rows, dtype=np.int64)]
+
+    def cat_rows(self, parts):
+        return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
 
     def describe(self) -> dict:
         return {"kind": self.kind, "engine": "numpy", "devices": 0}
@@ -250,6 +273,14 @@ class DevicePlacement:
         int32 words, the word axis padded to a multiple of 4."""
         return device_bits(bits, self.device)
 
+    def take_rows(self, bits: torch.Tensor, rows: np.ndarray) -> torch.Tensor:
+        """Rows of a device bitset matrix, gathered on its own device (worker
+        threads carry no current-device setting)."""
+        return bits[torch.from_numpy(np.asarray(rows, dtype=np.int64)).to(bits.device)]
+
+    def cat_rows(self, parts):
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
     def describe(self) -> dict:
         return {
             "kind": self.kind,
@@ -345,6 +376,253 @@ class DevicePlacement:
     def __repr__(self) -> str:
         return (f"DevicePlacement(engine={self.engine!r}, device={str(self.device)!r}, "
                 f"indexed={self.indexed!r})")
+
+
+class MeshPlacement:
+    """A ``(data, model)`` mesh of torch devices: pairs shard over ``data``,
+    words over ``model`` (``word_axis="model"``; ``None`` keeps whole rows).
+
+    Each mesh entry ``(d, w)`` holds its own tensors and launches its own
+    kernels, also where entries repeat a device (one card runs the whole
+    shard logic). A level's parent bitsets are word shard ``w`` on every
+    entry of column ``w`` (replicated over ``data``); a batch's pair list is
+    cut into ``data`` equal blocks (``padded_size``: the bucket, then
+    ``core.balance.balanced_blocks``); each pair shard sums its word
+    shards' partial counts on its first device and classifies after the sum
+    (``core.sharded``). Counts, classes and the device frontier's tables
+    gather on entry ``(0, 0)``, the home device. Children stay sharded
+    (:class:`~repro_torch.core.sharded.PairShardedBits`) until the level loop
+    gathers its stored rows into the next level's
+    :class:`~repro_torch.core.sharded.MeshBits`.
+
+    ``use_device_frontier`` is on for a mesh of CUDA devices and off for a
+    CPU mesh, as the reference gates its mesh frontier by backend.
+    ``shard_launches`` counts the kernel calls of each entry and seam.
+    """
+
+    kind = "mesh"
+
+    def __init__(
+        self,
+        mesh,
+        *,
+        word_axis: str | None = None,
+        engine: str = "cuda",
+        indexed: bool = True,
+        device_frontier: bool | None = None,
+    ):
+        if word_axis not in (None, "model"):
+            raise ValueError(f"word_axis must be 'model' or None, got {word_axis!r}")
+        if engine not in ("torch", "cuda"):
+            raise ValueError(f"MeshPlacement engine must be torch|cuda, got {engine!r}")
+        self.mesh = mesh
+        self.word_axis = word_axis
+        self.engine = engine
+        self.indexed = indexed
+        devices = list(mesh.devices.flat)
+        on_cuda = all(d.type == "cuda" for d in devices)
+        if any(d.type == "cuda" for d in devices) and not torch.cuda.is_available():
+            raise RuntimeError("a mesh of CUDA devices needs a CUDA card, and torch sees none")
+        self.use_device_frontier = on_cuda if device_frontier is None else bool(device_frontier)
+        self.donate = on_cuda
+        self.pair_shards = int(mesh.devices.shape[0])
+        self.word_shards = int(mesh.devices.shape[1]) if word_axis else 1
+        self.store_word_tile = self.word_shards
+        self.spans_processes = False  # a torch mesh lives in one process
+        self.home = mesh.devices[0, 0]
+        self.shard_launches = collections.Counter()
+        steps = {
+            (False, True): _sh.sharded_level_step,
+            (False, False): _sh.sharded_level_count_step,
+            (True, True): _sh.sharded_level_classify_step,
+            (True, False): _sh.sharded_level_classify_count_step,
+        }
+        self._steps = {
+            key: build(mesh, word_axis=word_axis, engine=engine, indexed=indexed,
+                       donate=self.donate and not indexed)
+            for key, build in steps.items()
+        }
+        self._coverage = _sh.sharded_coverage_step(mesh, word_axis=word_axis, engine=engine)
+
+    def _entry(self, d: int, w: int) -> torch.device:
+        return self.mesh.devices[d, w]
+
+    def _recorder(self, site: str):
+        """``record(d, w)``: one kernel call of entry ``(d, w)`` at ``site``."""
+        return lambda d, w: self.shard_launches.update([(site, d, w)])
+
+    def _grid(self, bits):
+        """Per-entry word shards of a level's parents, replicated over
+        ``data``: entry ``(0, w)`` uses a chained :class:`MeshBits` part in
+        place; every other entry holds its own copy. Returns ``(grid,
+        owned)``, ``owned`` naming the entries this call allocated."""
+        if isinstance(bits, _sh.MeshBits):
+            cols, owned = bits.parts, set()
+        else:
+            cols, owned = self.put_bits(bits).parts, {(0, w) for w in range(self.word_shards)}
+        grid = [[None] * self.word_shards for _ in range(self.pair_shards)]
+        for w in range(self.word_shards):
+            grid[0][w] = cols[w]
+            for d in range(1, self.pair_shards):
+                grid[d][w] = cols[w].to(self._entry(d, w), copy=True)
+                owned.add((d, w))
+        return grid, owned
+
+    def prepare(self, bits, parent_counts, tau: int, *, fused_classify: bool):
+        grid, owned = self._grid(bits)
+        pc = np.asarray(parent_counts, dtype=np.int32)
+        return {
+            "grid": grid,
+            "owned": owned,
+            "pcs": [torch.from_numpy(pc).to(self._entry(d, 0)) for d in range(self.pair_shards)],
+            "tau": int(tau),
+            "fused": fused_classify,
+            "n_words": int(bits.shape[1]),
+        }
+
+    def padded_size(self, m: int, *, pad_buckets: bool = True) -> int:
+        from .balance import balanced_blocks
+
+        bucket = _ops.next_bucket(m) if pad_buckets else m
+        return balanced_blocks(bucket, self.pair_shards)[0]
+
+    def _blocks(self, pairs) -> list[list[torch.Tensor]]:
+        """The pair list cut into ``data`` equal blocks, block ``d`` on every
+        entry of row ``d``."""
+        if not isinstance(pairs, torch.Tensor):
+            pairs = torch.from_numpy(np.ascontiguousarray(pairs, dtype=np.int32))
+        block = int(pairs.shape[0]) // self.pair_shards
+        out = []
+        for d in range(self.pair_shards):
+            blk = pairs[d * block : (d + 1) * block]
+            out.append([blk.to(self._entry(d, w)) for w in range(self.word_shards)])
+        return out
+
+    def dispatch(self, state, padded_pairs, write_children: bool):
+        _guard("dispatch", "mesh")
+        fused = state["fused"]
+        step = self._steps[(fused, write_children)]
+        blocks, counts, classes = step(state["grid"], self._blocks(padded_pairs), state["pcs"],
+                                       state["tau"], self._recorder("dispatch"))
+        cnt = torch.cat([c.to(self.home) for c in counts])
+        cls = torch.cat([c.to(self.home) for c in classes]) if classes is not None else None
+        child = _sh.PairShardedBits(blocks, state["n_words"]) if blocks is not None else None
+        return child, cnt, cls
+
+    def put_bits(self, bits) -> "_sh.MeshBits":
+        """Word-shard a long-lived bitset matrix over the mesh's first row
+        (``prepare`` replicates it over ``data`` per level)."""
+        bits = np.asarray(bits, dtype=np.uint32)
+        cols = _sh.split_words(bits, self.word_shards)
+        return _sh.MeshBits([torch.from_numpy(c).to(self._entry(0, w)) for w, c in enumerate(cols)],
+                            bits.shape[1])
+
+    def take_rows(self, bits, rows: np.ndarray) -> "_sh.MeshBits":
+        if isinstance(bits, _sh.PairShardedBits):
+            return bits.take(rows, [self._entry(0, w) for w in range(self.word_shards)])
+        return bits[np.asarray(rows, dtype=np.int64)]
+
+    def cat_rows(self, parts) -> "_sh.MeshBits":
+        if len(parts) == 1:
+            return parts[0]
+        return _sh.MeshBits(
+            [torch.cat([p.parts[w] for p in parts]) for w in range(self.word_shards)],
+            parts[0].n_words,
+        )
+
+    # -- coverage -------------------------------------------------------------
+
+    def prepare_coverage(self, bits):
+        """Word-shard the item bitsets onto every entry; the ``cuda`` engine
+        builds each entry's index of nonzero words for the anchored kernel."""
+        grid, _ = self._grid(bits)
+        indexes = [[(_cov_index.build_coverage_index(b) if self.engine == "cuda" else None)
+                    for b in row] for row in grid]
+        return grid, indexes
+
+    def coverage_dispatch(self, state, padded_sets, padded_weights):
+        """acc (32, word_shards * shard_width) int32 on the home device."""
+        _guard("coverage", "mesh")
+        grid, indexes = state
+        return self._coverage(grid, indexes, np.asarray(padded_sets), np.asarray(padded_weights),
+                              self._recorder("coverage"))
+
+    # -- frontier -----------------------------------------------------------
+
+    def prepare_frontier(self, itemsets, counts, n_symbols: int):
+        itemsets = np.asarray(itemsets, dtype=np.int32)
+        ids, keys, t_pad = _fops.make_level_tables(itemsets, n_symbols)
+        # the id/key tables replicate per pair shard (the shared-memory
+        # analogue); only the support test's pair axis shards
+        return {
+            "k": int(itemsets.shape[1]),
+            "n_symbols": int(n_symbols),
+            "t": int(itemsets.shape[0]),
+            "t_pad": t_pad,
+            "ids": [torch.from_numpy(ids).to(self._entry(d, 0)) for d in range(self.pair_shards)],
+            "keys": [torch.from_numpy(keys).to(self._entry(d, 0)) for d in range(self.pair_shards)],
+            "reps": group_reps(itemsets).astype(np.int32),
+        }
+
+    def frontier_dispatch(self, state, lo: int, hi: int, n_pairs: int):
+        """Candidate pairs generated on the home device, then the support
+        test split over the pair shards."""
+        _guard("frontier", "mesh")
+        row_bucket = _fops.gen_buckets(hi - lo, n_pairs)[0]
+        bucket = self.padded_size(n_pairs)
+        reps_b = torch.from_numpy(_fops.pad_reps(state["reps"][lo:hi], row_bucket)).to(self.home)
+        i, j, valid = _f.gen_pairs_body(reps_b, lo, n_pairs, bucket=bucket)
+        pairs = torch.stack([i, j], dim=1)
+        if state["k"] < 2:  # candidate width 2: both subsets are stored parents
+            return pairs, valid
+        k, n_symbols, t_pad = state["k"], state["n_symbols"], state["t_pad"]
+
+        def build():
+            bits, ipw, _ = _f.pack_params(n_symbols, k)
+            return _sh.sharded_frontier_support_step(self.mesh, k=k, t_pad=t_pad, bits=bits,
+                                                     ipw=ipw)
+
+        fn = _fops.EXEC_CACHE.get(("mesh-support", id(self.mesh), k, n_symbols, t_pad, bucket),
+                                  build)
+        return pairs, fn(state["ids"], state["keys"], pairs, valid)
+
+    def frontier_mask(self, state, pairs, ok):
+        return _f.mask_pruned_body(pairs, ok)
+
+    def frontier_partition(self, classes):
+        return _f.partition_body(classes)
+
+    def release(self, state) -> None:
+        """Drop what this placement allocated: a frontier state's tables, or
+        a level's replicated copies and uploads (a chained :class:`MeshBits`
+        stays its level's)."""
+        for name in ("ids", "keys"):
+            state.pop(name, None)
+        grid = state.get("grid")
+        if grid is not None:
+            for d, w in state.get("owned", ()):
+                grid[d][w] = None
+            state.pop("pcs", None)
+
+    def describe(self) -> dict:
+        return {
+            "kind": self.kind,
+            "engine": self.engine,
+            "devices": int(self.mesh.devices.size),
+            "distinct_devices": [str(d) for d in self.mesh.distinct_devices],
+            "mesh_entries": [str(d) for d in self.mesh.devices.flat],
+            "mesh_shape": self.mesh.shape,
+            "pair_axes": ["data"],
+            "word_axis": self.word_axis,
+            "pair_shards": self.pair_shards,
+            "word_shards": self.word_shards,
+            "spans_processes": self.spans_processes,
+            "indexed": self.indexed,
+        }
+
+    def __repr__(self) -> str:
+        return (f"MeshPlacement(shape={self.mesh.shape}, word_axis={self.word_axis!r}, "
+                f"engine={self.engine!r})")
 
 
 def make_placement(engine: str, *, device="cuda", indexed: bool = True):

@@ -24,9 +24,27 @@ import numpy as np
 
 from .items import ItemTable
 
-__all__ = ["Preprocessed", "preprocess", "ORDERINGS"]
+__all__ = ["Preprocessed", "preprocess", "set_row_group_collective", "ORDERINGS"]
 
 ORDERINGS = ("ascending", "descending", "random")
+
+# Fleet rendezvous for duplicate-row-set detection: with process-sharded
+# bitsets each process sees only its word stripes, so neither the hashes nor
+# the exact verification are decidable locally. When a collective is
+# installed, `_row_set_groups` combines all-gathered per-item hashes into a
+# global hash and AND-reduces the within-bucket equality flags — two
+# collective rounds per preprocess, after which every process holds the
+# identical canonical/mirror partition.
+_ROW_GROUP_COLLECTIVE = None
+
+
+def set_row_group_collective(coll):
+    """Install the fleet collective (``repro_torch.core.collective``) used to agree
+    on duplicate row sets; ``None`` restores local-only grouping. Returns the
+    previous value so callers can restore it."""
+    global _ROW_GROUP_COLLECTIVE
+    prev, _ROW_GROUP_COLLECTIVE = _ROW_GROUP_COLLECTIVE, coll
+    return prev
 
 
 @dataclasses.dataclass
@@ -73,6 +91,18 @@ def _row_set_groups(table: ItemTable, ids: np.ndarray) -> list[np.ndarray]:
     for w in range(sub.shape[1]):
         h = (h ^ sub[:, w].astype(np.uint64)) * mix
         h ^= h >> np.uint64(29)
+    coll = _ROW_GROUP_COLLECTIVE
+    if coll is not None:
+        # round 1: fold every process's local hashes (pid order is fixed by
+        # the all-gather) into one global hash — equal rows hash equal
+        # everywhere, so the buckets below agree across the fleet
+        mix2 = np.uint64(0xBF58476D1CE4E5B9)
+        combined = np.zeros_like(h)
+        for payload in coll.allgather(np.ascontiguousarray(h).tobytes()):
+            ph = np.frombuffer(payload, dtype=np.uint64)
+            combined = (combined ^ ph) * mix2
+            combined ^= combined >> np.uint64(31)
+        h = combined
     order = np.argsort(h, kind="stable")
     ordered = ids[order]
     hs = h[order]
@@ -84,14 +114,41 @@ def _row_set_groups(table: ItemTable, ids: np.ndarray) -> list[np.ndarray]:
             j += 1
         buckets.append(ordered[i:j])
         i = j
+    # exact verification within each multi-element bucket: all pairwise
+    # equality flags in one flat vector. Locally that is just array_equal;
+    # under a collective the flags AND-reduce (round 2: sum == nproc) so a
+    # pair is grouped only when its rows agree on *every* process's stripes.
+    multis = [b for b in buckets if len(b) > 1]
+    eq_of: dict[int, np.ndarray] = {}
+    if multis:
+        flags = []
+        for b in multis:
+            rows = table.bits[b]  # (g, W)
+            eq = (rows[:, None, :] == rows[None, :, :]).all(axis=2)
+            flags.append(eq[np.triu_indices(len(b), 1)])
+        flat = np.concatenate(flags).astype(np.int64)
+        if coll is not None:
+            flat = coll.allreduce_sum(flat) == coll.nproc
+        else:
+            flat = flat.astype(bool)
+        off = 0
+        for bi, b in enumerate(multis):
+            g = len(b)
+            npairs = g * (g - 1) // 2
+            eq = np.eye(g, dtype=bool)
+            iu = np.triu_indices(g, 1)
+            eq[iu] = flat[off : off + npairs]
+            eq.T[iu] = flat[off : off + npairs]
+            eq_of[bi] = eq
+            off += npairs
     groups: list[np.ndarray] = []
+    bi = 0
     for bucket in buckets:
         if len(bucket) == 1:
             groups.append(bucket)
             continue
-        # exact verification within a hash bucket
-        rows = table.bits[bucket]  # (g, W)
-        eq = (rows[:, None, :] == rows[None, :, :]).all(axis=2)
+        eq = eq_of[bi]
+        bi += 1
         rem = list(range(len(bucket)))
         while rem:
             head = rem[0]

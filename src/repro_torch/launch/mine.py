@@ -1,16 +1,24 @@
 """Mining CLI: dataset -> Kyiv -> minimal τ-infrequent itemsets, with
-optional level checkpointing.
+optional mesh sharding and level checkpointing.
 
   python -m repro_torch.launch.mine --dataset poker --n 100000 --tau 1 --kmax 4
   python -m repro_torch.launch.mine --engine torch --device cpu --n 2000
   python -m repro_torch.launch.mine --fimi path/to/connect.dat ...
   python -m repro_torch.launch.mine --ckpt-dir /path/to/ckpts ...
+  python -m repro_torch.launch.mine --sharded ...                  # the visible cards
+  python -m repro_torch.launch.mine --sharded --mesh 2x2 --device cuda:0
 
 Runs the CUDA kernels on the card by default (``--engine cuda``); with no
 card that raises, and ``--device cpu`` or ``--engine numpy`` mines on the
 CPU. ``--ckpt-dir`` saves every level boundary (``ckpt_<level>``: the stored
 level's ``itemsets``, ``counts`` and host ``bits``, and ``next_k``, with meta
 ``tau`` and ``kmax``) in the reference package's checkpoint format.
+
+``--sharded`` mines through a word-sharded mesh (``core.sharded``): pairs
+over ``data``, words over ``model``. Its shape is ``--mesh`` (``DATAxMODEL``),
+or by default up to ``4x2`` shrunk to the visible cards. A ``--device`` with
+an index (``cuda:0``), or ``cpu``, names one device that every mesh entry
+repeats; ``cuda`` spreads the entries over the visible cards.
 """
 
 from __future__ import annotations
@@ -39,6 +47,10 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda", help="torch device of the torch/cuda engines")
     ap.add_argument("--no-fused-classify", action="store_true",
                     help="classify on the host (the unfused baseline path)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="shard over a mesh of devices (pairs x words)")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="the --sharded mesh's shape (default: up to 4x2 over the visible cards)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="write results JSON here")
@@ -58,6 +70,13 @@ def main(argv=None) -> None:
                      fused_classify=not args.no_fused_classify)
     prep = preprocess(itemize(D), cfg.tau, ordering=cfg.ordering, seed=cfg.seed)
 
+    pipeline_factory = None
+    if args.sharded or args.mesh:
+        pipeline_factory = _sharded_factory(args, cfg)
+        mesh = pipeline_factory.placement.mesh
+        print(f"sharded over mesh {mesh.shape} "
+              f"({len(mesh.distinct_devices)} distinct device(s))")
+
     hook = None
     if args.ckpt_dir:
         cm = CheckpointManager(args.ckpt_dir)
@@ -68,7 +87,7 @@ def main(argv=None) -> None:
                         "bits": lvl.bits, "next_k": state["next_k"]},
                     {"tau": cfg.tau, "kmax": cfg.kmax})
 
-    res = mine_preprocessed(prep, cfg, on_level_end=hook)
+    res = mine_preprocessed(prep, cfg, pipeline_factory=pipeline_factory, on_level_end=hook)
 
     print(f"dataset {D.shape}, |L| = {prep.n_l}, tau={cfg.tau}, kmax={cfg.kmax}, "
           f"engine={cfg.engine}, device={cfg.device}")
@@ -86,6 +105,17 @@ def main(argv=None) -> None:
                 {"itemsets": [{"items": list(ids), "count": c} for ids, c in res.itemsets],
                  "stats": [vars(s) for s in res.stats]},
                 f, indent=1, default=str)
+
+
+def _sharded_factory(args, cfg):
+    from ..core.sharded import make_sharded_pipeline
+    from .mesh import mesh_for_device
+
+    if cfg.engine == "numpy":
+        raise SystemExit("--sharded needs --engine torch or cuda")
+    return make_sharded_pipeline(mesh_for_device(args.mesh, args.device),
+                                 word_axis="model", fused_classify=cfg.fused_classify,
+                                 engine=cfg.engine, indexed=cfg.indexed_kernel)
 
 
 if __name__ == "__main__":

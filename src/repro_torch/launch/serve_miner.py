@@ -5,6 +5,17 @@
   PYTHONPATH=src python -m repro_torch.launch.serve_miner --engine torch \
       --device cpu --preload table.csv                # on the CPU
 
+  # word-sharded store over a mesh (pair shards x word shards = 2x2); every
+  # entry repeats cuda:0 (or cpu), or --device cuda spreads it over the cards
+  PYTHONPATH=src python -m repro_torch.launch.serve_miner --mesh 2x2 --device cuda:0
+
+  # a lockstep fleet of two processes; process 0 binds HTTP and preloads,
+  # process 1 runs the command loop
+  PYTHONPATH=src python -m repro_torch.launch.serve_miner --num-processes 2 \
+      --process-id 0 --coordinator-address 127.0.0.1:9911 --preload table.csv &
+  PYTHONPATH=src python -m repro_torch.launch.serve_miner --num-processes 2 \
+      --process-id 1 --coordinator-address 127.0.0.1:9911
+
 The service runs on the card by default (``--engine cuda --device cuda``:
 the hand-written CUDA kernels); without a card it exits with an error unless
 given ``--device cpu`` or ``--engine numpy``.
@@ -78,6 +89,18 @@ under ``DIR/flight``; the next start serves it parsed at
 same ``--preload`` appends the preload again on top of the recovered store,
 as the reference server does: restart without it.
 
+Fleet (``--num-processes N --process-id I --coordinator-address H:P``):
+every process stores only its round-robin word stripes and mines in
+lockstep; the partial popcounts meet in one all-reduce per batch over the
+``TCPStore`` process 0 hosts (``core.collective``). Process 0 serves HTTP
+and replicates appends and mines over that command bus (``service.fleet``);
+the peers run no HTTP and take no ``--preload``. Each process keeps its WAL
+under ``--wal-dir``/p<I>. A peer that misses a round for
+``--fleet-timeout-s`` degrades the fleet to process 0's shadow, a plain
+service over the whole table on the same engine (``--no-shadow``: fail
+instead); ``/stats`` shows ``resilience.fleet``. Approximate mines and
+per-request deadlines are refused on a fleet.
+
 Hardening:
 
 * ``--auth-token TOKEN`` (or env ``MINER_AUTH_TOKEN``) requires
@@ -116,6 +139,7 @@ from ..service import (
     MiningService,
     NotReadyError,
 )
+from .mesh import distributed_init, fleet_store, is_main, launch_env_summary, mesh_for_device
 
 __all__ = ["make_server", "main"]
 
@@ -476,6 +500,11 @@ def main(argv=None) -> None:
     ap.add_argument("--engine", default="cuda", choices=["numpy", "torch", "cuda"])
     ap.add_argument("--device", default="cuda",
                     help="torch device of the torch/cuda engines")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="serve from a word-sharded mesh store, e.g. '2x2' (pair shards x "
+                         "word shards); --device cuda spreads it over the visible cards, "
+                         "cuda:0 or cpu repeats that one device; DCNxDATAxMODEL with "
+                         "--num-processes DCN")
     ap.add_argument("--cache-capacity", type=int, default=64)
     ap.add_argument("--cache-max-bytes", type=int, default=None,
                     help="bound the result cache by payload bytes, not just "
@@ -524,6 +553,19 @@ def main(argv=None) -> None:
     ap.add_argument("--no-flight", action="store_true",
                     help="disable the crash-persistent flight recorder "
                          "(only meaningful with --wal-dir)")
+    ap.add_argument("--coordinator-address", default=None,
+                    help="host:port of the fleet's TCPStore (process 0 hosts it)")
+    ap.add_argument("--num-processes", type=int, default=1,
+                    help="fleet size; each process stores only its word stripes and "
+                         "process 0 binds HTTP")
+    ap.add_argument("--process-id", type=int, default=0,
+                    help="this process's fleet index (0 = coordinator)")
+    ap.add_argument("--fleet-timeout-s", type=float, default=60.0,
+                    help="deadline for a peer's collective round; a miss degrades the "
+                         "fleet to process 0's shadow")
+    ap.add_argument("--no-shadow", action="store_true",
+                    help="skip the coordinator's full-copy shadow service (halves its "
+                         "memory; a dead peer then fails requests instead of degrading)")
     ap.add_argument("--flight-fsync-s", type=float, default=0.25,
                     help="flight-recorder flush/fsync cadence; checkpoints "
                          "and config events always fsync inline")
@@ -539,13 +581,54 @@ def main(argv=None) -> None:
         max_traces=args.trace_max, sample_every=args.trace_sample
     )
 
+    # fleet bootstrap: join the TCPStore, then wrap this process's placement
+    # (one device, or its local mesh) into a FleetPlacement so that every
+    # popcount batch all-reduces over the fleet collective
+    pid, nproc = distributed_init(args.coordinator_address, args.num_processes,
+                                  args.process_id)
+    env = launch_env_summary()
+    _log.info("launch environment %s", json.dumps(env, sort_keys=True),
+              extra={"event": "launch-env", "env": env})
+
+    placement = None
+    if args.mesh:
+        from ..core.placement import MeshPlacement
+
+        if args.engine == "numpy":
+            ap.exit(2, "serve_miner: --mesh needs --engine torch or cuda\n")
+        placement = MeshPlacement(
+            mesh_for_device(args.mesh, args.device, num_processes=nproc),
+            word_axis="model", engine=args.engine,
+        )
+
+    fleet_collective = None
+    if nproc > 1:
+        from ..core.collective import FleetCollective
+        from ..core.fleet import FleetPlacement
+        from ..core.kyiv import KyivConfig
+        from ..core.placement import resolve_placement
+        from ..core.preprocess import set_row_group_collective
+
+        fleet_collective = FleetCollective(*fleet_store(), timeout_s=args.fleet_timeout_s)
+        set_row_group_collective(fleet_collective)
+        inner = placement or resolve_placement(KyivConfig(engine=args.engine,
+                                                          device=args.device))
+        placement = FleetPlacement(inner, collective=fleet_collective)
+
+    # per-process durability: each process journals and snapshots only its
+    # own stripes; a fleet restart recovers every shard locally
+    wal_dir = args.wal_dir
+    if wal_dir is not None and nproc > 1:
+        wal_dir = os.path.join(wal_dir, f"p{pid}")
+
     service = MiningService(
         engine=args.engine,
         device=args.device,
+        placement=placement,
         cache_capacity=args.cache_capacity,
         cache_max_bytes=args.cache_max_bytes,
         compact_threshold=args.compact_threshold,
-        wal_dir=args.wal_dir,
+        wal_dir=wal_dir,
         snapshot_every=args.snapshot_every,
         incremental=IncrementalConfig(max_delta_fraction=args.max_delta_fraction),
         profile_dir=args.profile_dir,
@@ -554,6 +637,51 @@ def main(argv=None) -> None:
         flight_fsync_s=args.flight_fsync_s,
         flight_max_bytes=args.flight_max_bytes,
     )
+
+    if nproc > 1:
+        from ..service.fleet import FleetFrontend, device_peak_bytes, serve_fleet_peer
+
+        if not is_main():
+            # peer process: no HTTP, no preload — rows and requests arrive
+            # over the command bus until the coordinator broadcasts shutdown
+            _log.info(
+                "fleet peer p%d/%d entering command loop", pid, nproc,
+                extra={"event": "fleet-peer", "pid": pid},
+            )
+            def on_op(op, executed):
+                from ..kernels import coverage as _cov_kernels
+                from ..kernels import intersect as _intersect_kernels
+
+                # this process's kernel launches so far, as /stats gives them
+                launches = {k: v for fam in (_intersect_kernels.LAUNCHES, _cov_kernels.LAUNCHES)
+                            for k, v in fam.items() if v}
+                peak = device_peak_bytes(service)
+                _log.info(
+                    "fleet peer p%d ran %s (%d ops, device peak %s bytes, launches %s)", pid, op,
+                    executed, peak, json.dumps(launches, sort_keys=True),
+                    extra={"event": "fleet-peer-op", "op": op, "executed": executed,
+                           "device_peak_bytes": peak, "launches": launches},
+                )
+
+            summary = serve_fleet_peer(service, fleet_collective, on_op=on_op)
+            service.close()
+            _log.info(
+                "fleet peer p%d stopped (%s, %d ops)",
+                pid, summary["reason"], summary["executed"],
+                extra={"event": "fleet-peer-stop", **summary},
+            )
+            return
+        shadow = None
+        if not args.no_shadow:
+            # the shadow mines with this process's engine and device: a
+            # dead peer never turns into a host answer
+            shadow = MiningService(
+                engine=args.engine,
+                device=args.device,
+                cache_capacity=args.cache_capacity,
+                incremental=IncrementalConfig(max_delta_fraction=args.max_delta_fraction),
+            )
+        service = FleetFrontend(service, fleet_collective, shadow=shadow)
 
     if args.preload == "randomized":
         from ..data.synth import randomized_dataset

@@ -13,7 +13,9 @@ endpoint (``repro_torch.launch.serve_miner``) exposes.
 The durability layer (``wal.DurableStore``) makes the store survive process
 death, ``resilience`` retries device failures behind a circuit breaker (a mine the
 card keeps failing is refused with ``DeviceUnavailable``, never answered from
-the host), and ``faults`` is the chaos-test injection harness.
+the host), and ``faults`` is the chaos-test injection harness. ``fleet``
+runs one service per process over a process-sharded store in lockstep
+(``FleetFrontend`` on process 0, ``serve_fleet_peer`` on the others).
 """
 
 from ..sampling import SamplingConfig
@@ -26,6 +28,7 @@ from .api import (
 )
 from .cache import CacheEntry, ResultCache, make_approx_key, make_key
 from .faults import DeviceFault, FaultInjector, KillPoint, placement_faults
+from .fleet import FleetFrontend, FleetOpError, replicate, serve_fleet_peer
 from .incremental import (
     IncrementalConfig,
     ResultBands,
@@ -46,6 +49,8 @@ __all__ = [
     "DeviceUnavailable",
     "DurableStore",
     "FaultInjector",
+    "FleetFrontend",
+    "FleetOpError",
     "IncrementalConfig",
     "KillPoint",
     "MineResponse",
@@ -62,4 +67,6 @@ __all__ = [
     "make_key",
     "mine_incremental",
     "placement_faults",
+    "replicate",
+    "serve_fleet_peer",
 ]

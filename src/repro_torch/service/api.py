@@ -49,7 +49,6 @@ from collections import OrderedDict
 from concurrent.futures import TimeoutError as FutureTimeoutError
 
 import numpy as np
-import torch
 
 from ..core.items import ItemTable
 from ..core.kyiv import KyivConfig, MiningResult, RunControl, mine_preprocessed
@@ -280,6 +279,9 @@ class MiningService:
             placement=self.placement,
             compact_threshold=compact_threshold,
             keep_versions=keep_versions,
+            # fleet placements carry (pid, nproc): the store keeps only this
+            # process's word stripes and global padding stays process-invariant
+            shard=getattr(self.placement, "shard", None),
         )
         # sites: ``wal.append`` (the durable store), ``mine.level_end`` (after
         # each level checkpoint of a durable cold mine); device faults go
@@ -544,18 +546,18 @@ class MiningService:
         (the default pipeline) for the host placement or when appends already
         moved the store past ``version``.
 
-        The gather indexes with a tensor on the resident tensor's own device
-        (the scheduler's worker threads carry no current-device setting).
-        Its rows keep the store's padded word axis, so every pipeline gets
-        the table's logical ``n_words`` to strip on host views."""
+        The gather (``placement.take_rows``) runs where the resident rows
+        live, on their own device (the scheduler's worker threads carry no
+        current-device setting). Its rows keep the store's padded word axis,
+        so every pipeline gets the table's logical ``n_words`` to strip on
+        host views."""
         placement = self.placement
         if placement.kind == "host":
             return None
         dev = self.store.device_bits(version)
         if dev is None:
             return None
-        index = torch.from_numpy(np.asarray(prep.l_items, dtype=np.int64)).to(dev.device)
-        l_bits_dev = dev[index]
+        l_bits_dev = placement.take_rows(dev, prep.l_items)
         n_words = int(prep.l_bits.shape[1])
 
         def factory(bits, counts, tau):
@@ -1262,7 +1264,14 @@ class MiningService:
         profile = self._privacy.get(key)
         if profile is not None:
             return profile, "privacy-cache"
-        profile = risk_profile(resp.result, placement=self.placement)
+        store = self.store
+        profile = risk_profile(
+            resp.result,
+            placement=self.placement,
+            # process-sharded store: the coverage accumulator is local-width;
+            # the fleet placement scatters it to global rows via this map
+            word_map=store.word_map() if store.shard[1] > 1 else None,
+        )
         self._privacy.put(key, profile)
         return profile, resp.source
 

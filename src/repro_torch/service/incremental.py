@@ -59,6 +59,16 @@ Two refinements ride on top of the base scheme:
   support counts run as batched intersect dispatches through the service's
   placement, their extension rows gathered on the device from the store's
   resident bitsets (``DatasetStore.device_bits``).
+* **Fleet mode**: when the store is process-sharded and ``placement`` is a
+  :class:`~repro_torch.core.fleet.FleetPlacement`, every popcount in this
+  module is a partial sum over local word stripes. Host count vectors funnel
+  through one ``allreduce_sum`` per stage (recount, expansion minimality,
+  delta-born delta supports); every count dispatched through the placement
+  (the expansion waves, the delta-born full supports) is all-reduced by
+  the placement itself. Delta-born candidates are unioned by one all-gather
+  (each process sees only its own delta rows), and budget decisions are
+  taken on the *global* pool so every process falls back — or doesn't — in
+  lockstep.
 """
 
 from __future__ import annotations
@@ -67,16 +77,14 @@ import dataclasses
 import time
 
 import numpy as np
-import torch
 
 from ..core.bitops import popcount_rows
-from ..core.items import ItemTable
+from ..core.items import WORD_BITS, ItemTable
 from ..core.kyiv import KyivConfig, LevelStats, MiningResult
-from ..core.bitops import device_bits
 from ..core.placement import HostPlacement
 from ..core.preprocess import Preprocessed
 from ..kernels.intersect.ops import LevelPipeline, _pad_pairs
-from .store import DatasetStore, mask_delta_words
+from .store import DatasetStore, mask_delta_words, mask_delta_words_local
 
 __all__ = ["IncrementalConfig", "ResultBands", "mine_incremental", "delta_support"]
 
@@ -97,10 +105,29 @@ class IncrementalConfig:
     enabled: bool = True
 
 
-def _delta_bits_of(table: ItemTable, base_rows: int) -> np.ndarray:
+def _delta_word_lo(word_map: np.ndarray, base_rows: int) -> int:
+    """First local word of a process-sharded snapshot that holds a delta
+    row (the word map is increasing)."""
+    return int(np.searchsorted(word_map, base_rows // WORD_BITS))
+
+
+def _delta_bits_of(
+    table: ItemTable, base_rows: int, word_map: np.ndarray | None = None
+) -> np.ndarray:
     """Delta-row bitsets derived from an immutable snapshot table (same
     contract as ``DatasetStore.delta_bits``, but safe against appends that
-    land while this mining request is running)."""
+    land while this mining request is running). ``word_map`` marks the
+    snapshot as process-sharded: delta words are scattered round-robin, so
+    pre-existing rows are zeroed in place (``mask_delta_words_local``), and
+    the local words before the first delta word are sliced off as the
+    unsharded path slices them (their map is ``word_map[_delta_word_lo:]``):
+    a full local width would make the delta-born gather ``dbits[candidates]``
+    as large as the table for every candidate (about 50 GB for 200,000
+    candidates at a million rows)."""
+    if word_map is not None:
+        lo = _delta_word_lo(word_map, base_rows)
+        sub = np.ascontiguousarray(table.bits[:, lo:])
+        return mask_delta_words_local(sub, base_rows, word_map[lo:])
     return mask_delta_words(table.bits, base_rows)[0]
 
 
@@ -167,14 +194,20 @@ class ResultBands:
         dfreq: np.ndarray,
         tau: int,
         d: int,
+        reduce_fn=None,
     ) -> tuple[np.ndarray, dict]:
         """New (base + delta) support of every cached itemset, in cached
         order, touching bitsets only where the ``dfreq`` upper bound admits a
-        non-zero delta. Returns ``(new_counts, stats)``."""
+        non-zero delta. ``dfreq`` must be the *global* per-item delta
+        frequency; under a fleet ``reduce_fn`` sums the partial popcounts
+        (one collective for all arities — the upper-bound filter is computed
+        from global values, so every process recounts the identical rows).
+        Returns ``(new_counts, stats)``."""
         total = sum(len(c) for c in self.counts.values())
         new = np.zeros(total, dtype=np.int64)
         n_recounted = 0
         n_band = 0
+        chunks: list[tuple[int, np.ndarray, np.ndarray]] = []
         for k in sorted(self.mats):
             mat, cnt = self.mats[k], self.counts[k]
             if len(cnt) == 0:
@@ -191,7 +224,15 @@ class ResultBands:
             new[self.index[k]] = cnt  # ub == 0 rows are exact as-is
             if len(need):
                 inter = np.bitwise_and.reduce(dbits[mat[need]], axis=1)
-                new[self.index[k][need]] += popcount_rows(inter).astype(np.int64)
+                chunks.append((k, need, popcount_rows(inter).astype(np.int64)))
+        if chunks:
+            flat = np.concatenate([c for _, _, c in chunks])
+            if reduce_fn is not None:
+                flat = reduce_fn(flat)
+            off = 0
+            for k, need, c in chunks:
+                new[self.index[k][need]] += flat[off : off + len(need)]
+                off += len(need)
         stats = {
             "n_recounted": n_recounted,
             "n_recount_skipped": total - n_recounted,
@@ -201,14 +242,14 @@ class ResultBands:
 
 
 def _filter_minimal(
-    table: ItemTable, cands: dict[frozenset, int], tau: int
+    table: ItemTable, cands: dict[frozenset, int], tau: int, reduce_fn=None
 ) -> dict[frozenset, int]:
     """Keep the minimal members of a τ-infrequent candidate pool, batched.
 
     Every distinct (|S|-1)-subset across all arity ≥ 3 candidates is counted
     once in one vectorised pass instead of one leave-one-out probe per
-    candidate. Arity 1 is minimal by definition; arity 2 checks
-    frequencies.
+    candidate — under a fleet that is a single partial-popcount all-reduce.
+    Arity 1 is minimal by definition; arity 2 checks global frequencies.
     """
     freq = table.freq
     bits = table.bits
@@ -234,11 +275,19 @@ def _filter_minimal(
         by_k: dict[int, list[int]] = {}
         for ix, sub in enumerate(sub_list):
             by_k.setdefault(len(sub), []).append(ix)
+        parts = []
         for kk in sorted(by_k):
             idxs = by_k[kk]
             mat = np.asarray([sub_list[i] for i in idxs], dtype=np.int64)
             inter = np.bitwise_and.reduce(bits[mat], axis=1)
-            sup[idxs] = popcount_rows(inter).astype(np.int64)
+            parts.append((idxs, popcount_rows(inter).astype(np.int64)))
+        flat = np.concatenate([p for _, p in parts])
+        if reduce_fn is not None:
+            flat = reduce_fn(flat)
+        off = 0
+        for idxs, p in parts:
+            sup[idxs] = flat[off : off + len(p)]
+            off += len(p)
     out: dict[frozenset, int] = {}
     for cs, cnt in cands.items():
         if len(cs) == 1:
@@ -262,6 +311,7 @@ def _expand_seeds(
     *,
     placement=None,
     resident_bits=None,
+    reduce_fn=None,
 ) -> dict[frozenset, int] | None:
     """All minimal τ-infrequent strict supersets of any seed, up to kmax.
 
@@ -301,10 +351,8 @@ def _expand_seeds(
     on_device = placement.kind != "host" and resident_bits is not None
     ext_host = bits[ext_universe]  # host copy: seeds the next wave's bits
     if on_device:
-        # gather on the resident tensor's own device (worker threads carry
-        # no current-device setting); the rows keep its padded word axis
-        dev = resident_bits.device
-        ext_res = resident_bits[torch.from_numpy(ext_universe).to(dev)]
+        # gathered where the resident rows live; they keep its word padding
+        ext_res = placement.take_rows(resident_bits, ext_universe)
     else:
         ext_res = ext_host
 
@@ -329,7 +377,7 @@ def _expand_seeds(
             f_count = len(seg)
             wave_bits = np.stack([wb for _, wb in seg])
             if on_device:
-                mat = torch.cat([ext_res, device_bits(wave_bits, dev)], dim=0)
+                mat = placement.cat_rows([ext_res, placement.put_bits(wave_bits)])
             else:
                 mat = np.concatenate([ext_res, wave_bits], axis=0)
             pipe = LevelPipeline(
@@ -369,12 +417,13 @@ def _expand_seeds(
                                 next_wave.append((cs, fb & ext_host[eidx]))
                         else:
                             # minimality is deferred: one batched subset-
-                            # support pass after the BFS replaces
+                            # support pass after the BFS (a single
+                            # collective under a fleet) replaces
                             # per-emission probes
                             found[cs] = cnt
             pipe.retire()
         wave = next_wave
-    return _filter_minimal(table, found, tau)
+    return _filter_minimal(table, found, tau, reduce_fn)
 
 
 def _delta_born(
@@ -387,6 +436,8 @@ def _delta_born(
     *,
     placement=None,
     resident_bits=None,
+    word_map: np.ndarray | None = None,
+    coll=None,
 ) -> dict[frozenset, int] | None:
     """Minimal τ-infrequent itemsets whose base support was 0.
 
@@ -402,6 +453,14 @@ def _delta_born(
     (an append of a thousand Poker-hand rows sends about 200,000 candidates,
     each reading half a megabyte at a million rows), else on the host.
     Returns None when the deduplicated candidate pool exceeds ``budget``.
+
+    Under a fleet (``word_map`` + ``coll``) each process reconstructs only
+    the delta rows living in its own word stripes, so the candidate pools
+    are unioned by one all-gather and the budget verdict is taken on the
+    *global* pool — either every process falls back to cold mining or none
+    does. The delta supports are all-reduced before the [1, τ] filter, and
+    the full-width counts are global (the placement's all-reduce, or one
+    collective over the host counts).
     """
     import itertools
 
@@ -415,11 +474,19 @@ def _delta_born(
     flat = np.unpackbits(
         np.ascontiguousarray(dbits).view(np.uint8), axis=1, bitorder="little"
     )  # (n_items, W*32); column j of word w = that word's row (w*32 + j)
-    lo = (base_rows // 32) * 32
-    row_items = flat[:, base_rows - lo : n - lo]  # (n_items, d)
+    if word_map is None:
+        lo = (base_rows // 32) * 32
+        row_items = flat[:, base_rows - lo : n - lo]  # (n_items, d)
+    else:
+        # sharded width: column c covers global row word_map[c // 32]*32 +
+        # c % 32; keep this process's columns inside the delta row range
+        wm = np.asarray(word_map, dtype=np.int64)
+        grow = wm.repeat(32) * 32 + np.tile(np.arange(32, dtype=np.int64), len(wm))
+        row_items = flat[:, (grow >= base_rows) & (grow < n)]
     keep = (freq > tau) & (freq < n)
 
     cands: set[tuple[int, ...]] = set()
+    overflow = False
     for r in range(row_items.shape[1]):
         items = np.nonzero(row_items[:, r])[0]
         items = items[keep[items]]
@@ -427,7 +494,25 @@ def _delta_born(
             for combo in itertools.combinations(items.tolist(), k):
                 cands.add(combo)
                 if len(cands) > budget:
-                    return None
+                    if coll is None:
+                        return None
+                    overflow = True  # verdict deferred to the global union
+                    break
+            if overflow:
+                break
+        if overflow:
+            break
+    if coll is not None:
+        pools = coll.allgather_obj((sorted(cands), overflow))
+        if any(o for _, o in pools):
+            return None
+        union: set[tuple[int, ...]] = set()
+        for pool, _ in pools:
+            union.update(tuple(c) for c in pool)
+        if len(union) > budget:
+            return None
+        cands = union
+    reduce_fn = coll.allreduce_sum if coll is not None else None
 
     pre: dict[frozenset, int] = {}
     by_k: dict[int, list[tuple[int, ...]]] = {}
@@ -437,6 +522,8 @@ def _delta_born(
         sets_k = by_k[k]
         mat = np.asarray(sets_k, dtype=np.int64)  # (r, k)
         dcounts = popcount_rows(np.bitwise_and.reduce(dbits[mat], axis=1))
+        if reduce_fn is not None:
+            dcounts = reduce_fn(dcounts)
         # the full support is at least the delta support, so only 1 <= dcnt
         # <= tau can qualify: only those pay the full-width count
         live = np.nonzero((dcounts >= 1) & (dcounts <= tau))[0]
@@ -444,12 +531,14 @@ def _delta_born(
             full = _full_supports_resident(placement, resident_bits, mat[live], table.n_words)
         else:
             full = _full_supports(bits, mat[live])
+            if reduce_fn is not None:
+                full = reduce_fn(full)
         for i, cnt in zip(live.tolist(), full.tolist()):
             # cnt == dcnt <=> base support 0: itemsets present at the base are
             # exactly the family already covered by recount + seed expansion
             if cnt == int(dcounts[i]):
                 pre[frozenset(sets_k[i])] = cnt
-    return _filter_minimal(table, pre, tau)
+    return _filter_minimal(table, pre, tau, reduce_fn)
 
 
 def _full_supports(bits: np.ndarray, mat: np.ndarray) -> np.ndarray:
@@ -499,7 +588,8 @@ def _full_supports_resident(placement, resident, mat: np.ndarray, n_words: int) 
             pairs = np.stack([left, sub[:, pos]], axis=1).astype(np.int32)
             handle = pipe.submit_padded(_pad_pairs(pairs, placement.padded_size(c)), c, write)
             if write:
-                rows = torch.cat([resident, handle.raw()[0][:c]])
+                rows = placement.cat_rows(
+                    [resident, placement.take_rows(handle.raw()[0], np.arange(c))])
                 left = np.arange(t, t + c)
             else:
                 out[s : s + c] = handle.result()[1]
@@ -585,15 +675,25 @@ def mine_incremental(
         placement = getattr(config, "placement", None)
     if isinstance(placement, str):
         placement = None  # an engine name: the expansion runs on the host
+    # fleet mode: partial popcounts over local word stripes, reduced through
+    # the placement's collective; every budget/branch decision below is a
+    # function of global values so the processes stay in lockstep
+    fleet = getattr(placement, "kind", None) == "fleet"
+    coll = placement.collective if fleet else None
+    reduce_fn = coll.allreduce_sum if fleet else None
+    word_map = store.word_map(table.n_words) if store.shard[1] > 1 else None
 
     # 1. recount cached results on the appended rows — only where the
     # per-item delta-frequency bound admits a non-zero delta support
-    dbits = _delta_bits_of(table, base_rows)
+    dbits = _delta_bits_of(table, base_rows, word_map)
+    delta_map = None if word_map is None else word_map[_delta_word_lo(word_map, base_rows):]
     dfreq = popcount_rows(dbits).astype(np.int64)
+    if reduce_fn is not None:
+        dfreq = reduce_fn(dfreq)
     if bands is None:
         bands = ResultBands.from_result(base_result.itemsets)
     old_sets = [ids for ids, _ in base_result.itemsets]
-    new_counts, band_stats = bands.recount(dbits, dfreq, tau, delta_rows)
+    new_counts, band_stats = bands.recount(dbits, dfreq, tau, delta_rows, reduce_fn)
 
     results: list[tuple[tuple[int, ...], int]] = []
     seeds: list[tuple[int, ...]] = []
@@ -623,6 +723,7 @@ def mine_incremental(
         inc.expansion_budget,
         placement=placement,
         resident_bits=resident_bits,
+        reduce_fn=reduce_fn,
     )
     if expanded is None:
         return None
@@ -638,6 +739,8 @@ def mine_incremental(
         inc.delta_candidate_budget,
         placement=placement,
         resident_bits=resident_bits,
+        word_map=delta_map,
+        coll=coll,
     )
     if born is None:
         return None
@@ -677,4 +780,6 @@ def mine_incremental(
         "n_cached": len(old_sets),
         **band_stats,
     }
+    if fleet:
+        info["fleet"] = coll.stats()
     return result, info

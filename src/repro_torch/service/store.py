@@ -40,6 +40,23 @@ results be recounted instead of re-derived.
 ``export_state`` / ``from_state`` carry the store as a flat dict of numpy
 arrays and ints, in the reference package's layout (a state exported there
 loads here unchanged; ``repro_torch.convert.store_from_numpy``).
+
+Process sharding (the multi-process fleet)
+------------------------------------------
+
+With ``shard=(pid, nproc)`` each process stores only the word **stripes** it
+owns: the global word axis is cut into ``word_tile``-wide stripes assigned
+round-robin (stripe ``s`` belongs to process ``s % nproc``), and the global
+padded width is kept a multiple of ``word_tile * nproc`` so every process
+holds exactly ``1/nproc`` of the words — identical local shapes keep the
+lockstep mining loop's batch sizing process-invariant. ``append`` receives
+the full row block on every process (metadata — item ids, freq, min_row,
+watermarks — is computed globally and identically everywhere) but
+**itemizes only its own row range** into local tiles; ``export_state``
+persists local stripes only. Popcounts over local bits are partial
+supports; the fleet placement's all-reduce is the only cross-process mining
+collective. ``word_map()`` exposes the local->global word mapping consumers
+need to translate bit positions back to row ids.
 """
 
 from __future__ import annotations
@@ -52,7 +69,7 @@ import numpy as np
 from ..core.items import WORD_BITS, ItemTable
 from ..core.placement import HostPlacement
 
-__all__ = ["DatasetStore", "mask_delta_words"]
+__all__ = ["DatasetStore", "mask_delta_words", "mask_delta_words_local"]
 
 _MIN_ITEM_CAP = 64
 _MIN_WORD_CAP = 8
@@ -73,6 +90,25 @@ def mask_delta_words(bits: np.ndarray, base_rows: int) -> tuple[np.ndarray, int]
     return sub, word_lo
 
 
+def mask_delta_words_local(
+    bits: np.ndarray, base_rows: int, word_map: np.ndarray
+) -> np.ndarray:
+    """Sharded-store analogue of :func:`mask_delta_words`: zero the bits of
+    rows below ``base_rows`` **in place of slicing** — a process-sharded
+    matrix keeps its full local width because delta words are scattered
+    round-robin across processes, not contiguous. ``word_map`` is the
+    store's local->global word mapping; popcounts over the result are exact
+    *partial* delta supports (sum across the fleet for the global count)."""
+    word_map = np.asarray(word_map)
+    boundary = base_rows // WORD_BITS
+    sub = np.ascontiguousarray(bits).copy()
+    sub[:, word_map < boundary] = 0
+    keep = base_rows % WORD_BITS
+    if keep:
+        sub[:, word_map == boundary] &= np.uint32(0xFFFFFFFF) << np.uint32(keep)
+    return sub
+
+
 class DatasetStore:
     """Append-only itemized dataset with versioned snapshots.
 
@@ -88,6 +124,7 @@ class DatasetStore:
         placement=None,
         compact_threshold: int | None = None,
         keep_versions: int = 8,
+        shard: tuple[int, int] | None = None,
     ):
         if n_cols <= 0:
             raise ValueError(f"n_cols must be positive, got {n_cols}")
@@ -102,6 +139,11 @@ class DatasetStore:
                 f"compact_threshold must exceed keep_versions + 1 "
                 f"({keep_versions + 1}), got {compact_threshold}"
             )
+        if shard is not None:
+            pid, nproc = int(shard[0]), int(shard[1])
+            if nproc <= 0 or not (0 <= pid < nproc):
+                raise ValueError(f"shard must be (pid, nproc) with 0 <= pid < nproc, got {shard}")
+            shard = (pid, nproc)
         self.n_cols = int(n_cols)
         self.placement = placement
         if placement is not None:
@@ -109,13 +151,18 @@ class DatasetStore:
             ptile = int(getattr(placement, "store_word_tile", 1) or 1)
             word_tile = word_tile * ptile // math.gcd(word_tile, ptile)
         self.word_tile = int(word_tile)
+        # (pid, nproc) stripe ownership; (0, 1) is the identity sharding —
+        # deliberately the same code path, so loopback fleets exercise the
+        # stripe math in ordinary single-process tests
+        self.shard = shard or (0, 1)
         self.compact_threshold = compact_threshold
         self.keep_versions = int(keep_versions)
         self.compactions = 0
         self.n_rows = 0
         self.version = 0
         self._n_items = 0
-        self._n_words = 0  # current padded width (multiple of word_tile)
+        self._n_words = 0  # current LOCAL padded width (multiple of word_tile)
+        self._n_words_global = 0  # nproc * local width (== local unsharded)
         self._id_of: dict[tuple[int, int], int] = {}  # (col, value) -> item id
         cap = _MIN_ITEM_CAP
         self._value = np.zeros(cap, dtype=np.int64)
@@ -159,9 +206,45 @@ class DatasetStore:
                 "n_items": self._n_items,
                 "n_words": self._n_words,
                 "word_tile": self.word_tile,
+                "shard": list(self.shard),
+                "n_words_global": self._n_words_global,
                 "bitset_bytes": self._bits.nbytes,
                 "compactions": self.compactions,
             }
+
+    def word_map(self, n_words: int | None = None) -> np.ndarray:
+        """Local->global word index mapping (int64, length ``n_words``).
+
+        Entry ``lw`` is the global word index this process's local word ``lw``
+        holds; under the identity shard (0, 1) this is ``arange(n_words)``.
+        The mapping is a pure function of the index (prefix-stable as the
+        store grows), so callers holding an older snapshot pass that
+        snapshot's ``n_words``. Consumers use it to translate local bit
+        positions back to row ids and to mask delta words
+        (:func:`mask_delta_words_local`)."""
+        with self._lock:
+            pid, nproc = self.shard
+            lw = np.arange(
+                self._n_words if n_words is None else int(n_words), dtype=np.int64
+            )
+            stripe = lw // self.word_tile
+            return (stripe * nproc + pid) * self.word_tile + lw % self.word_tile
+
+    def watermark_digest(self) -> bytes:
+        """Cheap process-invariant digest of the version watermarks.
+
+        Every fleet process computes this from purely global metadata
+        (versions, row/item watermarks — never the local bits), so after a
+        fanned-out append the coordinator can all-gather digests and assert
+        the processes agree before mining against the new version."""
+        with self._lock:
+            versions = sorted(self._watermarks)
+            payload = np.asarray(
+                [self.version, self.n_rows, self._n_items, self._n_words_global]
+                + [x for v in versions for x in (v, *self._watermarks[v])],
+                dtype=np.int64,
+            )
+            return payload.tobytes()
 
     # -- growth -------------------------------------------------------------
 
@@ -202,12 +285,23 @@ class DatasetStore:
         with self._lock:
             base = self.n_rows
             total = base + d
+            pid, nproc = self.shard
+            # the global width stays a multiple of word_tile * nproc so the
+            # round-robin stripes divide exactly: every process's local
+            # width is identical, keeping lockstep batch sizing in sync
+            unit = self.word_tile * nproc
             words_exact = (total + WORD_BITS - 1) // WORD_BITS
-            n_words = -(-words_exact // self.word_tile) * self.word_tile
+            n_words_global = ((words_exact + unit - 1) // unit) * unit
+            n_words = n_words_global // nproc
 
             global_rows = base + np.arange(d, dtype=np.int64)
             gw = global_rows // WORD_BITS
             gb = (global_rows % WORD_BITS).astype(np.uint32)
+            stripe = gw // self.word_tile
+            # row-range ownership: this process itemizes only rows landing
+            # in its own stripes ((0, 1) shards own everything)
+            own = (stripe % nproc) == pid
+            lw = (stripe // nproc) * self.word_tile + gw % self.word_tile
 
             for j in range(self.n_cols):
                 colv = rows[:, j]
@@ -230,7 +324,9 @@ class DatasetStore:
                     ids[u] = item
                 self._grow(self._n_items, n_words)
                 item_ids = ids[inverse]  # (d,)
-                np.bitwise_or.at(self._bits, (item_ids, gw), np.uint32(1) << gb)
+                np.bitwise_or.at(
+                    self._bits, (item_ids[own], lw[own]), np.uint32(1) << gb[own]
+                )
                 self._freq[ids] += counts
                 # first occurrence per unique value within this block
                 order = np.argsort(inverse, kind="stable")
@@ -240,6 +336,7 @@ class DatasetStore:
                 self._min_row[ids] = np.minimum(self._min_row[ids], first_rows)
 
             self._n_words = max(self._n_words, n_words)
+            self._n_words_global = max(self._n_words_global, n_words_global)
             self.n_rows = total
             self.version += 1
             self._watermarks[self.version] = (self.n_rows, self._n_items)
@@ -325,9 +422,9 @@ class DatasetStore:
                 "version": int(self.version),
                 "n_items": int(t),
                 "n_words": int(w),
-                "n_words_global": int(w),
-                "shard_pid": 0,
-                "shard_nproc": 1,
+                "n_words_global": int(self._n_words_global),
+                "shard_pid": int(self.shard[0]),
+                "shard_nproc": int(self.shard[1]),
                 "compactions": int(self.compactions),
                 "value": self._value[:t].copy(),
                 "col": self._col[:t].copy(),
@@ -351,6 +448,7 @@ class DatasetStore:
         placement=None,
         compact_threshold: int | None = None,
         keep_versions: int = 8,
+        shard: tuple[int, int] | None = None,
     ) -> "DatasetStore":
         """Rebuild a store from :meth:`export_state` output (this package's
         or the reference's). The rebuilt store is observably identical: item
@@ -359,13 +457,17 @@ class DatasetStore:
         ``placement`` must be layout-compatible with the state (its word
         tile has to divide the state's padded width); rebuilding onto a
         placement with a coarser word tile raises rather than silently
-        re-pack bits. A process-sharded state (a fleet host's local word
-        stripes) is refused: this package has no fleet."""
+        re-pack bits. A process-sharded state holds local stripes only and
+        must be rebuilt by the same ``shard`` — each fleet process replays
+        its own WAL/snapshot."""
         snap_shard = (int(state.get("shard_pid", 0)), int(state.get("shard_nproc", 1)))
-        if snap_shard != (0, 1):
+        if shard is None:
+            shard = snap_shard
+        elif tuple(shard) != snap_shard:
             raise ValueError(
-                f"state was taken by fleet shard {snap_shard}: its bitsets are "
-                "one process's word stripes, not the whole table"
+                f"snapshot was taken by shard {snap_shard} but recovery "
+                f"requested shard {tuple(shard)} — local stripes are not "
+                "transferable between processes"
             )
         store = cls(
             int(state["n_cols"]),
@@ -373,6 +475,7 @@ class DatasetStore:
             placement=placement,
             compact_threshold=compact_threshold,
             keep_versions=keep_versions,
+            shard=shard,
         )
         t, w = int(state["n_items"]), int(state["n_words"])
         if w % store.word_tile != 0:
@@ -384,6 +487,7 @@ class DatasetStore:
         store._grow(max(t, 1), max(w, store.word_tile))
         store._n_items = t
         store._n_words = w
+        store._n_words_global = int(state.get("n_words_global", w))
         store.n_rows = int(state["n_rows"])
         store.version = int(state["version"])
         store.compactions = int(state["compactions"])
@@ -457,6 +561,11 @@ class DatasetStore:
         with self._lock:
             base_rows = self.rows_at(base_version)
             view = self._bits[: self._n_items, : self._n_words]
+            if self.shard[1] > 1:
+                # sharded words are round-robin striped, not contiguous:
+                # keep the full local width (word_lo = 0) and zero the
+                # pre-existing rows' words instead of slicing them off
+                return mask_delta_words_local(view, base_rows, self.word_map()), 0
             return mask_delta_words(view, base_rows)
 
     def device_bits(self, version: int | None = None):
@@ -465,8 +574,9 @@ class DatasetStore:
         device placement's level-1 bits are a device-side gather of this
         tensor): ``placement.put_bits``, which on a device uploads int32
         words with the word axis padded to a multiple of 4 (host views strip
-        the padding, ``core.bitops.host_bits``). Without a placement the
-        host placement's contiguous numpy copy.
+        the padding, ``core.bitops.host_bits``); a ``MeshPlacement`` word-
+        shards it. Without a placement the host placement's contiguous numpy
+        copy.
 
         ``version`` pins the expected store version: if appends have already
         moved the store past it, returns None and the caller falls back to

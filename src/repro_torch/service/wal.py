@@ -29,10 +29,11 @@ version are skipped, so a crash *between* snapshot and WAL reset cannot
 double-apply a block.
 
 Pickles read back from disk (WAL frames here, level-checkpoint blobs in
-:mod:`repro_torch.service.api`) go through :func:`restricted_loads`, which
-resolves only this package's classes, numpy's and plain builtin types: a
-blob that names another package's class (the reference's
-``repro.core.kyiv.MiningState``) fails to load instead of importing it.
+:mod:`repro_torch.service.api`) go through ``core.pickling.restricted_loads``
+(re-exported here), which resolves only this package's classes, numpy's
+and plain builtin types: a blob that names another package's class (the
+reference's ``repro.core.kyiv.MiningState``) fails to load instead of
+importing it.
 
 What fsync buys (and doesn't): an acknowledged append survives process
 death and OS crash on a journaling filesystem; it does not survive the
@@ -43,7 +44,6 @@ no append).
 
 from __future__ import annotations
 
-import io
 import os
 import pickle
 import struct
@@ -53,6 +53,7 @@ import zlib
 
 import numpy as np
 
+from ..core.pickling import restricted_loads
 from ..distributed.checkpoint import CheckpointManager
 from ..obs import metrics as _om
 from ..obs.trace import span as _obs_span
@@ -90,29 +91,6 @@ _REPLAYED = _om.counter(
 
 MAGIC = b"KWAL"
 _HEADER = struct.Struct("<4sII")  # magic, crc32(payload), len(payload)
-
-# the builtins a pickled record or mining state may name: plain data types
-_SAFE_BUILTINS = frozenset({
-    "bool", "bytearray", "bytes", "complex", "dict", "float", "frozenset",
-    "int", "list", "range", "set", "slice", "str", "tuple",
-})
-
-
-class _RestrictedUnpickler(pickle.Unpickler):
-    def find_class(self, module: str, name: str):
-        top = module.split(".")[0]
-        if top in ("repro_torch", "numpy") or (
-            module == "builtins" and name in _SAFE_BUILTINS
-        ):
-            return super().find_class(module, name)
-        raise pickle.UnpicklingError(f"refusing to load {module}.{name}")
-
-
-def restricted_loads(data: bytes):
-    """``pickle.loads`` that resolves only ``repro_torch.*``, ``numpy.*`` and
-    plain builtin types; any other global raises ``UnpicklingError``."""
-    return _RestrictedUnpickler(io.BytesIO(data)).load()
-
 
 class WriteAheadLog:
     """CRC-framed fsync'd append log with torn-tail recovery."""
