@@ -123,7 +123,22 @@ machine: the kernels build from the sources in the checkout into
    counts of all within-group pairs must equal the pairwise count kernel's
    (``intersect_count_indexed``) and the plain version's, and the kernel is
    timed beside the pairwise kernel over the same pairs in the level
-   pipeline's batches of 16,384.
+   pipeline's batches of 16,384;
+14. lm: the LM scaffold's serving path (``repro_torch.models``, no kernel of
+   rows 1-11: plain PyTorch). The ten reduced architectures on the card
+   against the port on the CPU with the same weights (float32, prefill and
+   8 decode steps, logits and every cache leaf within 1e-4); gemma3-4b at
+   full width and depth in float32 (3.88B parameters), B = 2, S = 1,536
+   (over its 1,024 window, so its local layers keep rings): 8 decode steps'
+   logits equal to the full forward's within 2e-3; then ``python -m
+   repro_torch.launch.serve --arch gemma3-4b --batch 8 --prompt-len 2048
+   --max-new 64`` in a subprocess (the card, bfloat16), whose tokens must
+   equal an in-process run of the same seed and be the full forward's
+   greedy choices (wherever the top-2 margin exceeds 0.5), no two rows
+   alike (each row repeats its prompt's last token: with random weights
+   and a tied embedding the input token dominates the last hidden state);
+   the prefill time, decode step (median and range), tokens/s and peak
+   memory of both printed beside the decode step's memory bound.
 
 Each kernel's ``bound_ms`` is the larger of its bytes over the memory rate
 and the least time of its operations. Phase 1 measures the card's rates of
@@ -2479,6 +2494,350 @@ def phase_tiled(device, prep, rates: dict) -> dict:
     return out
 
 
+LM_ARCH = "gemma3-4b"
+LM_CHECK_B, LM_CHECK_S, LM_CHECK_STEPS = 2, 1_536, 8  # S over gemma3's 1,024 window: rings
+LM_SERVE = dict(batch=8, prompt_len=2_048, max_new=64)
+LM_CARD_TOL = 1e-4  # reduced, float32: card against CPU (sums in other orders)
+LM_DECODE_TOL = 2e-3  # full width, float32: decode against the full forward (the reference's test)
+# full width, bf16: decode against the full forward. Both round every
+# activation to bf16 (8 significant bits) but sum in other orders; logits
+# reach about 10, where a bf16 ulp is 0.0625, so 0.25 is four ulps there
+LM_BF16_TOL = 0.25
+LM_PLANT_STEPS = 4  # decode steps of each planted fault's run
+# faults planted in the caches or positions a correct decode gets; each must
+# break the float32 limit, or it could not see a wrong cache. The bf16 limit
+# must see the wrong ring; a one-position slip moves bf16 logits (0.17 on an
+# H100) about as much as two correct bf16 paths differ (0.12), so there only
+# the float32 check, which runs the same code, holds it
+LM_FAULTS = ("ring_oldest", "position_early")
+LM_BF16_SEES = ("ring_oldest",)
+
+
+def _lm_batch(cfg, b: int, s: int, seed: int) -> dict:
+    from repro_torch.launch.serve import make_batch
+
+    return make_batch(cfg, np.random.default_rng(seed), b, s)
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _cache_leaves(cache) -> list:
+    if isinstance(cache, dict):
+        return _cache_leaves(cache["self"]) + _cache_leaves(cache["cross"])
+    return [v for st in cache for _, v in sorted(st.items())]
+
+
+def _lm_reduced(device) -> float:
+    """The ten reduced architectures on the card against the port on the CPU,
+    same weights, float32: prefill and 8 decode steps, logits and caches."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models.zoo import build
+    from repro_torch.serving.engine import prefill_then_decode
+
+    worst = 0.0
+    for name in sorted(ARCHS):
+        cfg = reduced(ARCHS[name])
+        model = build(cfg)
+        cpu_net = model.init(torch.Generator().manual_seed(0))
+        card_net = model.load({k: v.to(device) for k, v in cpu_net.state_dict().items()})
+        batch = _lm_batch(cfg, 2, 20 + 8, seed=1)
+        want, want_cache = prefill_then_decode(model, cpu_net, batch, 20, 8)
+        got, got_cache = prefill_then_decode(model, card_net, batch, 20, 8)
+        pairs = [(got, want)] + list(zip(_cache_leaves(got_cache), _cache_leaves(want_cache),
+                                         strict=True))
+        for g, w in pairs:
+            g, w = g.float().cpu(), w.float()
+            if g.shape != w.shape or not torch.allclose(g, w, rtol=LM_CARD_TOL, atol=LM_CARD_TOL):
+                fail(f"phase lm: reduced {name} on the card differs from the CPU "
+                     f"(max_abs_err {float((g - w).abs().max()):.3g})")
+            worst = max(worst, float((g - w).abs().max()))
+    return worst
+
+
+def _planted(model, fault: str):
+    """``model`` with a fault planted where a decode reads its state:
+    ``ring_oldest`` lays each local layer's ring out from the prompt's first
+    window of positions, not its last; ``position_early`` decodes every step
+    one position early (the previous token's cache entry is overwritten and
+    RoPE is off by one)."""
+    base = type(model)
+    window = model.cfg.window
+
+    class Planted(base):
+        def prefill(self, net, batch):
+            logits, cache = base.prefill(self, net, batch)
+            if fault == "ring_oldest":
+                _, oldest = base.prefill(self, net, dict(batch, tokens=batch["tokens"][:, :window]))
+                cache = [o if st["k"].shape[1] == window else st for st, o in zip(cache, oldest)]
+            return logits, cache
+
+        def decode(self, net, batch, cache):
+            if fault == "position_early":
+                batch = dict(batch, positions=batch["positions"] - 1)
+            return base.decode(self, net, batch, cache)
+
+    return Planted(model.cfg)
+
+
+def _lm_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
+    d = (got.float() - want).abs()
+    return {"max_abs_err": float(d.max()), "rms_err": float(d.square().mean().sqrt()),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def _lm_decode_check(model, net, batch, s: int, steps: int, want: torch.Tensor) -> tuple:
+    """Teacher-forced decode of ``batch`` from ``s`` against the full
+    forward's logits ``want`` (B, steps + 1, V), then each planted fault's
+    decode over ``LM_PLANT_STEPS``. Returns (the decode's logits on the card,
+    its errors, {fault: errors}); ``_lm_judge`` holds them to a limit."""
+    from repro_torch.serving.engine import prefill_then_decode
+
+    got, cache = prefill_then_decode(model, net, batch, s, steps)
+    del cache
+    planted = {}
+    for fault in LM_FAULTS:
+        bad, cache = prefill_then_decode(_planted(model, fault), net, batch, s, LM_PLANT_STEPS)
+        del cache
+        planted[fault] = _lm_errors(bad, want[:, :LM_PLANT_STEPS + 1])
+    return got, _lm_errors(got, want), planted
+
+
+def _lm_judge(what: str, errs: dict, planted: dict, tol: float, sees=LM_FAULTS) -> None:
+    """The decode's max_abs_err within ``tol``; each planted fault of
+    ``sees`` over it."""
+    if not errs["finite"] or errs["max_abs_err"] > tol:
+        fail(f"phase lm: {what} decode differs from the forward (max_abs_err "
+             f"{errs['max_abs_err']:.4g}, limit {tol})")
+    for fault in sees:
+        if planted[fault]["max_abs_err"] <= tol:
+            fail(f"phase lm: {what} limit {tol} does not see the planted fault {fault} "
+                 f"(max_abs_err {planted[fault]['max_abs_err']:.4g})")
+
+
+def _lm_full_width_check(device) -> dict:
+    """gemma3-4b at full width and depth in float32: prefill of 1,536 tokens
+    (local caches become rings) and 8 decode steps against the full forward,
+    and the planted faults against the same limit."""
+    import dataclasses as dc
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.zoo import build
+    from repro_torch.serving.engine import prefill_then_decode
+
+    cfg = dc.replace(ARCHS[LM_ARCH], dtype="float32")
+    model = build(cfg)
+    t0 = time.perf_counter()
+    net = model.init(torch.Generator(device).manual_seed(0), device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size() for p in net.parameters())
+    batch = _lm_batch(cfg, LM_CHECK_B, LM_CHECK_S + LM_CHECK_STEPS, seed=2)
+    t0 = time.perf_counter()
+    _, cache = prefill_then_decode(model, net, batch, LM_CHECK_S, 0)
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+    rings = sorted({tuple(st["k"].shape) for st in cache})
+    want_shapes = [(LM_CHECK_B, cfg.window, cfg.n_kv_heads, cfg.head_dim),
+                   (LM_CHECK_B, LM_CHECK_S, cfg.n_kv_heads, cfg.head_dim)]
+    if rings != want_shapes:
+        fail(f"phase lm: full-width cache shapes {rings}, want {want_shapes}")
+    del cache
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = model.forward(net, {k: v.to(device) for k, v in batch.items()},
+                             positions=slice(LM_CHECK_S - 1, None)).float()
+    _sync(device)
+    forward_s = time.perf_counter() - t0
+    _, errs, planted = _lm_decode_check(model, net, batch, LM_CHECK_S, LM_CHECK_STEPS, want)
+    del net, want
+    torch.cuda.empty_cache()
+    print(f"phase lm: float32 decode == forward {errs} (limit {LM_DECODE_TOL}); planted faults "
+          f"{planted}", flush=True)
+    _lm_judge("full-width float32", errs, planted, LM_DECODE_TOL)
+    return {"init_s": init_s, "weight_gb": weight_bytes / 1e9, "prefill_s": prefill_s,
+            "forward_s": forward_s, "max_abs_err": errs["max_abs_err"], "planted": planted}
+
+
+def _lm_step_bytes(batch: int, ctx: int) -> tuple[int, int]:
+    """Bytes one bf16 decode step of gemma3-4b must read: every weight once
+    (the tied embedding is the head) and every KV cache at ``ctx`` slots."""
+    import dataclasses as dc
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.layers.common import F32_LEAVES
+    from repro_torch.models.zoo import build
+
+    cfg = dc.replace(ARCHS[LM_ARCH], dtype="bfloat16")
+    model = build(cfg)
+    weights = sum(p.numel() * (4 if n.rsplit(".", 1)[-1] in F32_LEAVES else 2)
+                  for n, p in model.abstract_params().named_parameters())
+    caches = sum(v.numel() * v.element_size()
+                 for st in model.init_cache(batch, ctx, device="meta") for v in st.values())
+    return weights, caches
+
+
+LM_PROFILE_STEPS = 4
+
+
+def _lm_decode_profile(model, net, prompts, first) -> dict:
+    """``torch.profiler`` over ``LM_PROFILE_STEPS`` decode steps after a
+    prefill: the window's wall time (ending in a sync; the profiler's own
+    host cost included), the device's busy time (kernels, copies and fills
+    on the one stream) and the device time by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.engine import grow_cache
+
+    device = torch.device("cuda", 0)
+    b, s = prompts.shape
+    _, cache = model.prefill(net, {"tokens": prompts.to(device)})
+    cache = grow_cache(cache, s, s + LM_PROFILE_STEPS)
+    tok = first.to(device)[:, None]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(LM_PROFILE_STEPS):
+            dec = {"tokens": tok, "positions": torch.full((b,), s + i, device=device)}
+            logits, cache = model.decode(net, dec, cache)
+            tok = logits[:, 0].argmax(dim=-1)[:, None]
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    # CUPTI's marker of the host blocked on a full launch queue: not device work
+    host_wait_ms = by_name.pop("Command Buffer Full", (0.0, 0))[0]
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    if busy_ms > wall_ms:
+        fail(f"phase lm: the profile counts {busy_ms:.3f} ms of device time in a "
+             f"{wall_ms:.3f} ms window: events overlap or are counted twice")
+    del cache
+    return {"steps": LM_PROFILE_STEPS, "wall_ms": wall_ms, "busy_ms": busy_ms,
+            "host_wait_ms": host_wait_ms, "idle_share_profiled": 1.0 - busy_ms / wall_ms,
+            "launches": sum(n for _, n in by_name.values()),
+            "top": sorted(((ms, n, name) for name, (ms, n) in by_name.items()), reverse=True)[:6]}
+
+
+def _lm_serve_inproc() -> dict:
+    """``serve``'s run in this process (``launch.serve.prepare`` and
+    ``generate``: the same seed and arguments as the CLI), a profile of its
+    decode, then the bf16 decode's logits over the generated tokens against
+    the bf16 full forward's, and the planted faults against the same limit.
+    The teacher-forced decode's argmax must give ``generate``'s tokens."""
+    from repro_torch.launch.serve import prepare
+    from repro_torch.serving.engine import generate
+
+    device = torch.device("cuda", 0)
+    s, new = LM_SERVE["prompt_len"], LM_SERVE["max_new"]
+    model, net, prompts, extra = prepare(LM_ARCH, batch=LM_SERVE["batch"], prompt_len=s)
+    torch.cuda.reset_peak_memory_stats(device)
+    gen = generate(model, net, prompts, max_new=new, extra=extra)
+    peak = torch.cuda.max_memory_allocated(device)
+    prof = _lm_decode_profile(model, net, prompts, gen.tokens[:, 0])
+    prof["step_ms_median"] = float(np.median(gen.step_s)) * 1e3
+    prof["idle_share"] = 1.0 - prof["busy_ms"] / prof["steps"] / prof["step_ms_median"]
+    batch = {"tokens": torch.cat([prompts, gen.tokens[:, :-1]], dim=1)}
+    with torch.inference_mode():
+        want = model.forward(net, {"tokens": batch["tokens"].to(device)},
+                             positions=slice(s - 1, None)).float()
+    got, errs, planted = _lm_decode_check(model, net, batch, s, new - 1, want)
+    print(f"phase lm: bf16 decode == forward {errs} (limit {LM_BF16_TOL}, must see "
+          f"{LM_BF16_SEES}); planted faults {planted}", flush=True)
+    _lm_judge("full-width bf16", errs, planted, LM_BF16_TOL, sees=LM_BF16_SEES)
+    top2 = want.topk(2, dim=-1).values
+    check = {**errs, "planted": planted,
+             "min_margin": float((top2[..., 0] - top2[..., 1]).min()),
+             "decode_argmax_is_generate": bool((got.argmax(dim=-1).cpu() == gen.tokens).all())}
+    del net, want, got, top2
+    torch.cuda.empty_cache()
+    wall = gen.prefill_s + gen.decode_s
+    return {"tokens": gen.tokens.tolist(), "prefill_s": gen.prefill_s, "decode_step_s": gen.step_s,
+            "decode_step_median_s": float(np.median(gen.step_s)),
+            "tokens_per_s": gen.tokens.numel() / wall, "peak_bytes": peak,
+            "profile": prof, "check": check}
+
+
+def phase_lm(device) -> dict:
+    """The LM scaffold's serving path: reduced architectures card against CPU,
+    gemma3-4b's full-width decode check, then its serve CLI in bfloat16."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("phase lm: TF32 matmuls are on; the port never enables them")
+    worst = _lm_reduced(device)
+    print(f"phase lm: reduced ok archs=10 prefill+8 decode steps card==cpu "
+          f"max_abs_err={worst:.3g} (tol {LM_CARD_TOL}) s={time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    t0 = time.perf_counter()
+    full = _lm_full_width_check(device)
+    print(f"phase lm: full-width ok {LM_ARCH} float32 weights={full['weight_gb']:.2f}GB "
+          f"B={LM_CHECK_B} S={LM_CHECK_S} 8 decode steps==forward "
+          f"max_abs_err={full['max_abs_err']:.3g} (tol {LM_DECODE_TOL}) "
+          f"init_s={full['init_s']:.2f} prefill_s={full['prefill_s']:.3f} "
+          f"forward_s={full['forward_s']:.3f} s={time.perf_counter() - t0:.1f}", flush=True)
+
+    out_json = ROOT / "build" / "lm_serve.json"
+    out_json.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", LM_ARCH,
+           "--batch", str(LM_SERVE["batch"]), "--prompt-len", str(LM_SERVE["prompt_len"]),
+           "--max-new", str(LM_SERVE["max_new"]), "--out", str(out_json)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=str(ROOT), env=env)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"phase lm: serve CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+    rec = json.loads(out_json.read_text())
+    out_json.unlink()
+    if rec["device"] != "cuda" or rec["dtype"] != "bfloat16":
+        fail(f"phase lm: serve CLI ran on {rec['device']} in {rec['dtype']}")
+    inproc = _lm_serve_inproc()
+    weights, caches = _lm_step_bytes(LM_SERVE["batch"],
+                                     LM_SERVE["prompt_len"] + LM_SERVE["max_new"])
+    bound_ms = (weights + caches) / HBM_BYTES_PER_S * 1e3
+    out = {}
+    for label, r in (("cli", rec), ("inproc", inproc)):
+        steps = sorted(r["decode_step_s"])
+        out[label] = {"prefill_s": r["prefill_s"], "step_ms_median": r["decode_step_median_s"] * 1e3,
+                      "step_ms_min": steps[0] * 1e3, "step_ms_max": steps[-1] * 1e3,
+                      "tokens_per_s": r["tokens_per_s"], "peak_gb": r["peak_bytes"] / 1e9}
+    for label, o in out.items():
+        print(f"phase lm: serve {label} {LM_ARCH} bf16 B={LM_SERVE['batch']} "
+              f"S={LM_SERVE['prompt_len']} new={LM_SERVE['max_new']} "
+              f"prefill_s={o['prefill_s']:.4f} decode_step_ms median={o['step_ms_median']:.3f} "
+              f"range=[{o['step_ms_min']:.3f},{o['step_ms_max']:.3f}] "
+              f"tokens_per_s={o['tokens_per_s']:.1f} peak_gb={o['peak_gb']:.2f} "
+              f"step_bound_ms={bound_ms:.3f} (weights {weights / 1e9:.2f}GB + caches "
+              f"{caches / 1e9:.2f}GB over 3.35TB/s)", flush=True)
+    prof = inproc["profile"]
+    print(f"phase lm: profile of {prof['steps']} decode steps: wall {prof['wall_ms']:.3f} ms, "
+          f"device busy {prof['busy_ms']:.3f} ms (idle share {prof['idle_share_profiled']:.3f} "
+          f"of the profiled window; {prof['idle_share']:.3f} of the unprofiled median step "
+          f"{prof['step_ms_median']:.3f} ms), {prof['launches']} device operations, host "
+          f"blocked on a full launch queue {prof['host_wait_ms']:.3f} ms; by time: "
+          + "; ".join(f"{name[:48]} {ms:.3f} ms x{n}" for ms, n, name in prof["top"]),
+          flush=True)
+    check = inproc["check"]
+    tokens = rec["tokens"]
+    print(f"phase lm: the forward's min top-2 margin over the generated tokens "
+          f"{check['min_margin']:.4g}; distinct tokens per row {[len(set(row)) for row in tokens]}",
+          flush=True)
+    if inproc["tokens"] != tokens:
+        fail("phase lm: the serve CLI's tokens differ from an in-process generate of one seed")
+    if not check["decode_argmax_is_generate"]:
+        fail("phase lm: the teacher-forced decode's argmax is not generate's tokens")
+    out.update(full=full, reduced_max_abs_err=worst, bound_ms=bound_ms, cli_s=cli_s,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"phase lm: ok tokens equal (CLI subprocess == in-process) cli_s={cli_s:.1f} "
+          f"phase_s={out['phase_s']:.1f}", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -2523,6 +2882,7 @@ def main() -> None:
     del table_bits, qi3, poker_res
     tiled = phase_tiled(device, poker_prep, rates)
     del poker_prep
+    phase_lm(device)
 
     kernels = []
     for name, (replaces, _, _) in KERNELS.items():

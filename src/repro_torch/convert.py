@@ -20,6 +20,12 @@ watermarks, item metadata and the ``(n_items, n_words)`` uint32 bitsets), the
 same in both packages: :func:`store_from_numpy` rebuilds this package's
 ``DatasetStore`` from the reference's export unchanged, so a table appended
 in the reference service answers ``/mine`` here identically.
+
+An LM's parameters cross as the reference's pytree in numpy form (nested
+dicts and lists of arrays): :func:`lm_params_from_numpy` unstacks its
+scanned groups into this package's per-layer modules and returns a state
+dict that ``models.zoo.Model.load`` takes, so both packages compute the
+same thing.
 """
 
 from __future__ import annotations
@@ -27,14 +33,18 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .core.bitops import host_bits
 from .core.kyiv import LevelStats, MiningState
 from .core.prefix import Level
 from .core.support import ItemsetIndex
+from .models.layers.common import F32_LEAVES
+from .models.lm import layout
 from .service.store import DatasetStore
 
-__all__ = ["state_to_numpy", "state_from_numpy", "store_to_numpy", "store_from_numpy"]
+__all__ = ["state_to_numpy", "state_from_numpy", "store_to_numpy", "store_from_numpy",
+           "lm_params_from_numpy"]
 
 _STAT_FIELDS = tuple(f.name for f in dataclasses.fields(LevelStats))
 
@@ -95,3 +105,59 @@ def store_from_numpy(d: dict, *, placement=None, **kw):
     (and ``compact_threshold`` / ``keep_versions`` / ``shard``) as for
     ``DatasetStore.from_state``."""
     return DatasetStore.from_state(d, placement=placement, **kw)
+
+
+def _flatten(prefix: str, tree, out: dict) -> None:
+    """Dotted names of the array leaves of nested dicts (None: an absent leaf)."""
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            _flatten(f"{prefix}{key}.", v, out)
+        elif v is not None:
+            out[f"{prefix}{key}"] = v
+
+
+def _index(tree, i: int):
+    """Slice i of every leaf of a stacked subtree."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return None if tree is None else tree[i]
+
+
+def lm_params_from_numpy(tree: dict, cfg, device=None, dtype: torch.dtype | None = None) -> dict:
+    """This package's LM state dict from the reference's parameter pytree.
+
+    ``tree`` is ``jax.tree.map(np.asarray, params)`` of ``build(cfg).init``:
+    stacked ``groups[pos]`` leaves (n_groups, ...) go to layer
+    ``prefix + gi * len(pattern) + pos``, and the encoder-decoder's stacked
+    ``enc_layers`` / ``dec_layers`` to one layer each. With ``dtype`` every
+    leaf that the layers read only through a cast to the activation dtype
+    (projections, experts, embedding, biases) is stored in it; the leaves of
+    ``F32_LEAVES`` (norm scales, ``A_log``, ``dt_bias``, ``D``, ``lam``) stay
+    float32.
+    """
+    flat: dict = {}
+    _flatten("embed.", tree["embed"], flat)
+    if cfg.family == "audio":
+        for key in ("enc_norm", "final_norm"):
+            flat[key] = tree[key]
+        for key, n in (("enc_layers", cfg.enc_layers), ("dec_layers", cfg.n_layers)):
+            for li in range(n):
+                _flatten(f"{key}.{li}.", _index(tree[key], li), flat)
+    else:
+        flat["final_norm"] = tree["final_norm"]
+        prefix, n_groups, _ = layout(cfg)
+        glen = len(cfg.pattern)
+        for i, bp in enumerate(tree["prefix"]):
+            _flatten(f"layers.{i}.", bp, flat)
+        for pos, gp in enumerate(tree["groups"]):
+            for gi in range(n_groups if gp is not None else 0):
+                _flatten(f"layers.{prefix + gi * glen + pos}.", _index(gp, gi), flat)
+        base = prefix + n_groups * glen
+        for i, bp in enumerate(tree["suffix"]):
+            _flatten(f"layers.{base + i}.", bp, flat)
+    state = {}
+    for name, a in flat.items():
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
+        keep = dtype is None or name.rsplit(".", 1)[-1] in F32_LEAVES
+        state[name] = t.to(device=device, dtype=torch.float32 if keep else dtype)
+    return state

@@ -1,7 +1,7 @@
 """The port imports neither JAX nor anything of the reference package
-``repro``: checked in a fresh interpreter that mines on the CPU and builds
-the resident service there, and by a scan of every import statement in the
-port's sources and in chip_smoke.py."""
+``repro``: checked in a fresh interpreter that mines on the CPU, builds the
+resident service there and generates from a reduced LM, and by a scan of
+every import statement in the port's sources and in chip_smoke.py."""
 
 import ast
 import os
@@ -26,6 +26,17 @@ assert res.itemsets
 svc = MiningService.from_dataset(D, engine="torch", device="cpu")
 assert svc.mine(tau=1, kmax=3).result.itemsets
 svc.close()
+import torch
+import repro_torch.configs, repro_torch.models, repro_torch.serving, repro_torch.launch.serve
+from repro_torch.configs import ARCHS, reduced
+from repro_torch.models import build
+from repro_torch.serving import generate
+for arch in ("gemma3-4b", "whisper-medium"):
+    model = build(reduced(ARCHS[arch]))
+    net = model.init(torch.Generator().manual_seed(0))
+    extra = {"frames": torch.zeros(2, 8, 64)} if arch == "whisper-medium" else None
+    gen = generate(model, net, torch.ones(2, 5, dtype=torch.long), max_new=3, extra=extra)
+    assert tuple(gen.tokens.shape) == (2, 3)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
 print("BAD", bad)
