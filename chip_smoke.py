@@ -138,7 +138,25 @@ machine: the kernels build from the sources in the checkout into
    alike (each row repeats its prompt's last token: with random weights
    and a tied embedding the input token dominates the last hidden state);
    the prefill time, decode step (median and range), tokens/s and peak
-   memory of both printed beside the decode step's memory bound.
+   memory of both printed beside the decode step's memory bound;
+15. train: training on one device (``repro_torch.training``, no kernel of
+   rows 1-11). The ten reduced architectures each take one float32 step
+   (``cast_bf16``, TF32 off) on the card from weights made on the CPU, and
+   the loss, gradient norm, every parameter and both moments must equal the
+   same step on the CPU (the CPU tests' rule: moments within 1e-4 of each
+   leaf's largest but for at most 0.1% of entries within one bf16 ulp of
+   the leaf's largest, parameters within 1e-6 of the update each side's own
+   moments give); then ``python -m repro_torch.launch.train --arch
+   granite-moe-1b-a400m --steps 8 --batch 8 --seq 2048 --lr 3e-4`` in a
+   subprocess (full width and depth, 1.33B parameters, bf16 activations
+   over float32 masters): every loss finite and the mean of the last two
+   below the first; the step time (median and range after step 0),
+   tokens/s and the peak memory printed beside the step's FLOP bound (6 x
+   active parameters x tokens plus causal attention, at the data sheet's
+   989 TFLOP/s); a ``torch.profiler`` trace of one warm step in this
+   process (device busy and idle share, device time by operator); last,
+   the CLI at reduced glm4-9b, 6 steps with checkpoints every 3, stopped
+   after step 3 and resumed, must give the uninterrupted run's losses.
 
 Each kernel's ``bound_ms`` is the larger of its bytes over the memory rate
 and the least time of its operations. Phase 1 measures the card's rates of
@@ -2838,6 +2856,265 @@ def phase_lm(device) -> dict:
     return out
 
 
+TRAIN_ARCH = "granite-moe-1b-a400m"
+# lr: OptConfig's default. The CLI's default (3e-3, the reference's, for the
+# reduced configs) with its one warmup step makes the full-width losses bounce
+# (PERF.md, PR 21)
+TRAIN_FULL = dict(steps=8, batch=8, seq=2_048, lr=3e-4)
+TRAIN_RESUME_ARCH = "glm4-9b"
+TRAIN_B, TRAIN_S = 2, 20  # the reduced steps' batch
+TRAIN_STEP_TOL = 1e-4  # of a leaf's largest |m| or |v| (tests/test_torch_train_rule.py)
+TRAIN_FLIP_SHARE = 1e-3  # most entries that may differ by a bf16 ulp of the gradient
+BF16_ULP = 2.0 ** -7
+# NVIDIA's data sheet: H100 SXM dense bf16 tensor-core peak (cited, not measured)
+BF16_PEAK_FLOPS = 989e12
+
+
+def _train_batch(cfg, b: int, s: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    batch = _lm_batch(cfg, b, s, seed)
+    labels = rng.integers(0, cfg.vocab, (b, s))
+    labels[0, :3] = -1
+    batch["labels"] = torch.from_numpy(labels)
+    return batch
+
+
+def _moments_close(got: dict, want: dict, what: str, ulps: float) -> int:
+    """Each leaf within TRAIN_STEP_TOL of its largest |want|, except at no
+    more than TRAIN_FLIP_SHARE of the entries, which may differ by ``ulps``
+    bf16 ulps of the leaf's largest more: a gradient term that two devices
+    sum in other orders can round to the neighbouring bf16 value, and a
+    gradient may be a sum of such terms (a tied embedding's gather and
+    head). Returns that count."""
+    flips = total = 0
+    for name, w in want.items():
+        g = got[name].detach().float().cpu()
+        d = (g - w).abs()
+        tol = TRAIN_STEP_TOL * float(w.abs().max())
+        over = d > tol
+        flips += int(over.sum())
+        total += d.numel()
+        if (over & (d > ulps * BF16_ULP * float(w.abs().max()) + tol)).any():
+            fail(f"phase train: {what} {name} differs beyond one bf16 ulp "
+                 f"(max {float(d.max()):.3g})")
+    if flips > TRAIN_FLIP_SHARE * total:
+        fail(f"phase train: {what}: {flips} of {total} entries differ by a bf16 ulp")
+    return flips
+
+
+def _adam_direction(opt: dict, name: str, cfg) -> torch.Tensor:
+    """AdamW's first-step direction m^ / (sqrt(v^) + eps), in float64 on the CPU."""
+    m = opt["m"][name].detach().cpu().double() / (1 - cfg.b1)
+    v = opt["v"][name].detach().cpu().double() / (1 - cfg.b2)
+    return m / (v.sqrt() + cfg.eps)
+
+
+def _train_reduced(device) -> dict:
+    """The ten reduced architectures: one float32 step (cast_bf16) on the
+    card against the same step on the CPU, from the same weights."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models.zoo import build
+    from repro_torch.training import OptConfig, adamw_init, make_train_step
+
+    opt_cfg = OptConfig(warmup_steps=1)
+    worst = {"loss": 0.0, "grad_norm": 0.0, "param": 0.0, "flips": 0, "moved": 0}
+    for name in sorted(ARCHS):
+        cfg = reduced(ARCHS[name])
+        model = build(cfg)
+        cpu_net = model.init(torch.Generator().manual_seed(0))
+        card_net = model.load({k: v.to(device, copy=True)
+                               for k, v in cpu_net.state_dict().items()})
+        batch = _train_batch(cfg, TRAIN_B, TRAIN_S, seed=3)
+        step = make_train_step(model, opt_cfg)
+        out = {}
+        for label, net in (("cpu", cpu_net), ("card", card_net)):
+            dev = next(net.parameters()).device
+            opt = adamw_init(dict(net.named_parameters()))
+            opt, met = step(net, opt, {k: v.to(dev) for k, v in batch.items()})
+            out[label] = (net, opt, {k: float(v) for k, v in met.items()})
+        (cn, co, cm), (gn, go, gm) = out["cpu"], out["card"]
+        if next(gn.parameters()).device.type != device.type:
+            fail(f"phase train: reduced {name} did not step on {device}")
+        d_loss = abs(gm["loss"] - cm["loss"])
+        d_gn = abs(gm["grad_norm"] - cm["grad_norm"]) / cm["grad_norm"]
+        if d_loss > 1e-5 or d_gn > 1e-5 or gm["lr"] != cm["lr"]:
+            fail(f"phase train: reduced {name}: card {gm} against cpu {cm}")
+        worst["flips"] += _moments_close(go["m"], co["m"], f"{name} m", 1)
+        worst["flips"] += _moments_close(go["v"], co["v"], f"{name} v", 2)
+        gp, cp = dict(gn.named_parameters()), dict(cn.named_parameters())
+        for n, w in cp.items():
+            # each side's update from its own moments: where a gradient at
+            # float noise (near eps, or a leaf whose exact gradient is zero)
+            # differs, AdamW's direction may swing by up to 2
+            d = gp[n].detach().cpu().double() - w.detach().double()
+            pred = -gm["lr"] * (_adam_direction(go, n, opt_cfg) - _adam_direction(co, n, opt_cfg))
+            if ((d - pred).abs() > 1e-6).any() or (d.abs() > 2 * opt_cfg.lr).any():
+                fail(f"phase train: reduced {name} param {n} differs by "
+                     f"{float((d - pred).abs().max()):.3g} from its moments' update")
+            worst["moved"] += int((d.abs() > 1e-6).sum())
+            worst["param"] = max(worst["param"], float((d - pred).abs().max()))
+        worst["loss"] = max(worst["loss"], d_loss)
+        worst["grad_norm"] = max(worst["grad_norm"], d_gn)
+    return worst
+
+
+def _train_cli(args: list[str], out_json: Path) -> dict:
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *args, "--out", str(out_json)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=str(ROOT),
+                          env=env)
+    if proc.returncode != 0:
+        fail(f"phase train: {' '.join(args)} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    rec = json.loads(out_json.read_text())
+    out_json.unlink()
+    return rec
+
+
+def _train_flop_bound_ms(cfg, batch: int, seq: int) -> tuple[float, float]:
+    """(FLOPs, ms) of one step's least work at the bf16 peak: 6 x active
+    parameters x tokens, plus causal attention's scores and weighted sums
+    (forward 2 B S^2 H hd per layer, backward twice that)."""
+    tokens = batch * seq
+    dense = 6 * cfg.active_param_count() * tokens
+    attn = 6 * cfg.n_layers * batch * seq * seq * cfg.n_heads * cfg.head_dim
+    flops = dense + attn
+    return flops, flops / BF16_PEAK_FLOPS * 1e3
+
+
+def _train_full_width(work: Path) -> dict:
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS[TRAIN_ARCH]
+    rec = _train_cli(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_FULL["steps"]),
+                      "--batch", str(TRAIN_FULL["batch"]), "--seq", str(TRAIN_FULL["seq"]),
+                      "--lr", str(TRAIN_FULL["lr"]), "--log-every", "1"], work / "full.json")
+    losses = rec["losses"]
+    if rec["device"] == "cpu" or rec["dtype"] != "bfloat16" or len(losses) != TRAIN_FULL["steps"]:
+        fail(f"phase train: full-width run on {rec['device']} in {rec['dtype']}, "
+             f"{len(losses)} steps")
+    if not all(np.isfinite(losses)):
+        fail(f"phase train: non-finite loss {losses}")
+    if not (losses[-1] + losses[-2]) / 2 < losses[0]:
+        fail(f"phase train: the loss does not fall: {losses}")
+    warm = sorted(rec["step_s"][1:])
+    flops, bound_ms = _train_flop_bound_ms(cfg, TRAIN_FULL["batch"], TRAIN_FULL["seq"])
+    median_ms = float(np.median(warm)) * 1e3
+    return {"losses": losses, "ln_vocab": float(np.log(cfg.vocab)), "step_ms_median": median_ms, "step_ms_min": warm[0] * 1e3,
+            "step_ms_max": warm[-1] * 1e3, "step0_ms": rec["step_s"][0] * 1e3,
+            "tokens_per_s": TRAIN_FULL["batch"] * TRAIN_FULL["seq"] / (median_ms / 1e3),
+            "tokens_per_s_all": rec["tokens_per_s"], "peak_gb": rec["peak_bytes"] / 1e9,
+            "params": cfg.param_count(), "active_params": cfg.active_param_count(),
+            "flops": flops, "bound_ms": bound_ms, "bound_share": bound_ms / median_ms}
+
+
+def _train_profile(device, arch: str | None = None) -> dict:
+    """``torch.profiler`` over one warm full-width train step in this
+    process (after one unprofiled step): the window's wall time (ending in
+    a sync), the device's busy time, and the device time by operator
+    (self time of each aten op) and by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.train import synthetic_lm_batches
+    from repro_torch.models.zoo import build
+    from repro_torch.training import OptConfig, init_train_state, make_train_step
+
+    cfg = ARCHS[arch or TRAIN_ARCH]
+    model = build(cfg)
+    opt_cfg = OptConfig(lr=TRAIN_FULL["lr"], warmup_steps=1, total_steps=TRAIN_FULL["steps"])
+    net, opt = init_train_state(model, torch.Generator(device).manual_seed(0), opt_cfg, device)
+    step = make_train_step(model, opt_cfg)
+    stream = synthetic_lm_batches(cfg.vocab, TRAIN_FULL["batch"], TRAIN_FULL["seq"], 0)
+    opt, met = step(net, opt, {k: v.to(device) for k, v in next(stream).items()})
+    batch = {k: v.to(device) for k, v in next(stream).items()}
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt, met = step(net, opt, batch)
+        _sync(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels: dict = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            ms, n = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    kernels.pop("Command Buffer Full", None)
+    busy_ms = sum(ms for ms, _ in kernels.values())
+    ops = sorted(((a.self_device_time_total / 1e3, a.count, a.key) for a in prof.key_averages()
+                  if a.key.startswith("aten::") and a.self_device_time_total > 0), reverse=True)
+    del net, opt, met, batch
+    torch.cuda.empty_cache()
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+            "launches": sum(n for _, n in kernels.values()), "ops": ops[:10],
+            "kernels": sorted(((ms, n, name) for name, (ms, n) in kernels.items()),
+                              reverse=True)[:6]}
+
+
+def _train_resume(work: Path) -> dict:
+    """The CLI at a reduced config on the card: 6 steps with checkpoints at
+    3 and 6, then a run stopped after step 3 (step 6's checkpoint removed)
+    and resumed; the resumed losses must equal the uninterrupted run's."""
+    base = ["--arch", TRAIN_RESUME_ARCH, "--reduced", "--steps", "6", "--ckpt-every", "3",
+            "--batch", "4", "--seq", "32", "--log-every", "1"]
+    full = _train_cli([*base, "--ckpt-dir", str(work / "full")], work / "a.json")
+    part_dir = work / "part"
+    _train_cli([*base, "--ckpt-dir", str(part_dir)], work / "b.json")
+    shutil.rmtree(part_dir / "ckpt_0000000006")
+    resumed = _train_cli([*base, "--ckpt-dir", str(part_dir), "--resume"], work / "c.json")
+    if resumed["start_step"] != 3 or resumed["device"] == "cpu":
+        fail(f"phase train: resumed from step {resumed['start_step']} on {resumed['device']}")
+    if resumed["losses"] != full["losses"][3:]:
+        fail(f"phase train: resumed losses {resumed['losses']} != {full['losses'][3:]}")
+    return {"losses": full["losses"], "resumed": resumed["losses"]}
+
+
+def phase_train(device) -> dict:
+    """Training on one device: the reduced steps card against CPU,
+    granite-moe-1b-a400m at full width through the train CLI, and a resumed
+    CLI run."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("phase train: TF32 matmuls are on; the port never enables them")
+    worst = _train_reduced(device)
+    print(f"phase train: reduced ok archs=10 one float32 step (cast_bf16) card==cpu "
+          f"loss_err={worst['loss']:.3g} grad_norm_rel_err={worst['grad_norm']:.3g} "
+          f"param_err={worst['param']:.3g} (tol 1e-6 after each side's own moments' update) "
+          f"moment entries at one bf16 ulp {worst['flips']}, param entries apart by more than "
+          f"1e-6 {worst['moved']} "
+          f"s={time.perf_counter() - t_phase:.1f}", flush=True)
+    work = ROOT / "build" / "smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    full = _train_full_width(work)
+    full_s = time.perf_counter() - t0
+    print(f"phase train: full-width {TRAIN_ARCH} bf16 activations over float32 masters "
+          f"params={full['params']:,} active={full['active_params']:,} "
+          f"B={TRAIN_FULL['batch']} S={TRAIN_FULL['seq']} losses={full['losses']} "
+          f"(first {full['losses'][0]:.4f} beside ln V = {full['ln_vocab']:.2f}) "
+          f"step_ms median={full['step_ms_median']:.1f} range=[{full['step_ms_min']:.1f},"
+          f"{full['step_ms_max']:.1f}] step0_ms={full['step0_ms']:.1f} "
+          f"tokens_per_s={full['tokens_per_s']:.0f} peak_gb={full['peak_gb']:.2f} "
+          f"flop_bound_ms={full['bound_ms']:.2f} ({full['flops']:.4g} FLOP at 989 TFLOP/s "
+          f"bf16, data sheet) share={full['bound_share']:.3f} cli_s={full_s:.1f}", flush=True)
+    prof = _train_profile(device)
+    print(f"phase train: profile of one warm full-width step in this process: wall "
+          f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms (idle share "
+          f"{prof['idle_share']:.3f}), {prof['launches']} device operations; by operator: "
+          + "; ".join(f"{name} {ms:.1f} ms x{n}" for ms, n, name in prof["ops"])
+          + "; by kernel: " + "; ".join(f"{name[:60]} {ms:.1f} ms x{n}"
+                                        for ms, n, name in prof["kernels"]), flush=True)
+    resume = _train_resume(work)
+    shutil.rmtree(work, ignore_errors=True)
+    out = {"reduced": worst, "full": full, "profile": prof, "resume": resume,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"phase train: ok resumed losses equal {resume['resumed']} "
+          f"phase_s={out['phase_s']:.1f}", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -2883,6 +3160,7 @@ def main() -> None:
     tiled = phase_tiled(device, poker_prep, rates)
     del poker_prep
     phase_lm(device)
+    phase_train(device)
 
     kernels = []
     for name, (replaces, _, _) in KERNELS.items():

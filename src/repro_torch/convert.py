@@ -41,10 +41,11 @@ from .core.prefix import Level
 from .core.support import ItemsetIndex
 from .models.layers.common import F32_LEAVES
 from .models.lm import layout
+from .models.zoo import build
 from .service.store import DatasetStore
 
 __all__ = ["state_to_numpy", "state_from_numpy", "store_to_numpy", "store_from_numpy",
-           "lm_params_from_numpy"]
+           "lm_params_from_numpy", "reference_rank2_names"]
 
 _STAT_FIELDS = tuple(f.name for f in dataclasses.fields(LevelStats))
 
@@ -161,3 +162,29 @@ def lm_params_from_numpy(tree: dict, cfg, device=None, dtype: torch.dtype | None
         keep = dtype is None or name.rsplit(".", 1)[-1] in F32_LEAVES
         state[name] = t.to(device=device, dtype=torch.float32 if keep else dtype)
     return state
+
+
+def _stacked(name: str, cfg) -> bool:
+    """Whether the reference stacks parameter ``name`` (a port name) along a
+    leading layer axis: a layer of a scanned group, or any encoder-decoder
+    layer."""
+    parts = name.split(".")
+    if parts[0] in ("enc_layers", "dec_layers"):
+        return True
+    if parts[0] != "layers":
+        return False
+    prefix, n_groups, _ = layout(cfg)
+    return prefix <= int(parts[1]) < prefix + n_groups * len(cfg.pattern)
+
+
+def reference_rank2_names(cfg) -> frozenset[str]:
+    """The port's parameter names whose reference leaf has rank 2 or more.
+
+    The reference weight-decays these leaves and casts them to bfloat16
+    before the forward of a train step; its rank counts the stacking axis
+    of the layout that :func:`lm_params_from_numpy` unstacks, so a norm
+    scale of a grouped layer is in the set and one of a prefix or suffix
+    layer is not."""
+    net = build(cfg).abstract_params()
+    return frozenset(name for name, p in net.named_parameters()
+                     if p.dim() + _stacked(name, cfg) >= 2)

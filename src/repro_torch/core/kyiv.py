@@ -55,7 +55,7 @@ from typing import Any, Callable
 
 import numpy as np
 
-from ..kernels.intersect.ops import LevelPipeline
+from ..kernels.intersect.ops import LegacyIntersectPipeline, LevelPipeline
 from ..obs import metrics as _om
 from ..obs.trace import span as _obs_span
 from ..obs.trace import start_trace as _obs_start_trace
@@ -330,6 +330,7 @@ def mine_preprocessed(
     prep: Preprocessed,
     config: KyivConfig,
     *,
+    intersect_fn: Callable[..., Any] | None = None,
     pipeline_factory: Callable[..., Any] | None = None,
     on_level_end: Callable[[int, "MiningState"], None] | None = None,
     resume_state: "MiningState | dict[str, Any] | None" = None,
@@ -341,8 +342,13 @@ def mine_preprocessed(
     pipeline (the resident service supplies one whose level 1 gathers from
     its store's device-resident bitsets); by default each level gets a
     :class:`~repro_torch.kernels.intersect.ops.LevelPipeline` on the
-    config's placement. ``on_level_end`` receives a :class:`MiningState` at
-    every level boundary (the checkpoint hook); ``resume_state`` (a ``MiningState`` or the
+    config's placement. ``intersect_fn(bits, pairs, write_children) ->
+    (child | None, counts)`` is the older injection contract
+    (``core.sharded.make_sharded_intersect``), adapted by
+    :class:`~repro_torch.kernels.intersect.ops.LegacyIntersectPipeline` with
+    host classification; a ``pipeline_factory`` takes precedence.
+    ``on_level_end`` receives a :class:`MiningState` at every level boundary
+    (the checkpoint hook); ``resume_state`` (a ``MiningState`` or the
     equivalent mapping from an old checkpoint) restarts there. ``control``
     carries a per-request deadline/cancellation checked at every batch
     boundary — an interrupted run returns the partial result with
@@ -359,6 +365,7 @@ def mine_preprocessed(
             result = _mine_preprocessed_inner(
                 prep,
                 config,
+                intersect_fn=intersect_fn,
                 pipeline_factory=pipeline_factory,
                 on_level_end=on_level_end,
                 resume_state=resume_state,
@@ -386,6 +393,7 @@ def _mine_preprocessed_inner(
     prep: Preprocessed,
     config: KyivConfig,
     *,
+    intersect_fn: Callable[..., Any] | None = None,
     pipeline_factory: Callable[..., Any] | None = None,
     on_level_end: Callable[[int, "MiningState"], None] | None = None,
     resume_state: "MiningState | dict[str, Any] | None" = None,
@@ -407,7 +415,10 @@ def _mine_preprocessed_inner(
             n_words=n_words,
         )
 
-    make_pipeline = pipeline_factory or default_pipeline
+    def legacy_pipeline(bits, counts, tau_):
+        return LegacyIntersectPipeline(intersect_fn, bits)
+
+    make_pipeline = pipeline_factory or (legacy_pipeline if intersect_fn else default_pipeline)
 
     results: list[tuple[tuple[int, ...], int]] = []
     stats: list[LevelStats] = []

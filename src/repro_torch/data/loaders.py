@@ -19,7 +19,7 @@ import csv
 
 import numpy as np
 
-__all__ = ["read_fimi", "encode_table", "read_csv"]
+__all__ = ["read_fimi", "write_fimi", "encode_table", "read_csv"]
 
 
 def read_fimi(path: str, pad_value: int = -1) -> np.ndarray:
@@ -35,6 +35,14 @@ def read_fimi(path: str, pad_value: int = -1) -> np.ndarray:
     for i, r in enumerate(rows):
         out[i, : len(r)] = r
     return out
+
+
+def write_fimi(path: str, table: np.ndarray, pad_value: int = -1) -> None:
+    """One line per row, its values space-separated, ``pad_value`` cells left
+    out (``read_fimi`` pads a short line back with it)."""
+    with open(path, "w") as f:
+        for row in np.asarray(table):
+            f.write(" ".join(str(int(x)) for x in row if x != pad_value) + "\n")
 
 
 def read_csv(

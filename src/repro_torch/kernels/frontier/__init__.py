@@ -15,9 +15,11 @@ from .frontier import (
 )
 from .ops import (
     EXEC_CACHE,
+    frontier_cache_stats,
     gen_buckets,
     make_level_tables,
     pad_reps,
+    reset_frontier_cache,
     table_pad,
 )
 from .ref import gen_pairs_np, key_table_np, lookup_np, pack_rows_np, partition_np
@@ -38,6 +40,8 @@ __all__ = [
     "pad_reps",
     "gen_buckets",
     "EXEC_CACHE",
+    "frontier_cache_stats",
+    "reset_frontier_cache",
     "pack_rows_np",
     "key_table_np",
     "lookup_np",

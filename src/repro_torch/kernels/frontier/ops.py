@@ -20,12 +20,23 @@ __all__ = [
     "pad_reps",
     "gen_buckets",
     "EXEC_CACHE",
+    "frontier_cache_stats",
+    "reset_frontier_cache",
 ]
 
 # The bound candidate-generation callables of the device placements, one per
 # (k, symbols, table pad, row bucket, pair bucket): the ``frontier`` family of
 # the process-wide ``repro_torch.core.exec_cache`` registry.
 EXEC_CACHE = exec_family("frontier")
+
+
+def frontier_cache_stats() -> dict:
+    """Snapshot of the frontier bucket family (entries/hits/misses)."""
+    return EXEC_CACHE.stats()
+
+
+def reset_frontier_cache() -> None:
+    EXEC_CACHE.clear()
 
 _LEVEL_TABLES = _om.counter(
     "repro_frontier_tables_total",

@@ -51,9 +51,12 @@ __all__ = [
     "locality_order",
     "next_bucket",
     "LevelPipeline",
+    "LegacyIntersectPipeline",
     "BatchHandle",
     "ENGINES",
     "EXEC_CACHE",
+    "executable_cache_stats",
+    "reset_executable_cache",
     "CLASS_SKIP",
     "CLASS_EMIT",
     "CLASS_STORE",
@@ -65,6 +68,17 @@ ENGINES = ("numpy", "torch", "cuda")
 # kernel variant, word width, batch bucket): the ``intersect`` family of the
 # process-wide ``repro_torch.core.exec_cache`` registry.
 EXEC_CACHE = exec_family("intersect")
+
+
+def executable_cache_stats() -> dict:
+    """Snapshot of this family's bucket cache (entries/hits/misses): the
+    ``intersect`` family of the process-wide ``core.exec_cache`` registry,
+    one hit/miss surface per kernel family."""
+    return EXEC_CACHE.stats()
+
+
+def reset_executable_cache() -> None:
+    EXEC_CACHE.clear()
 
 _MIN_BUCKET = 256
 
@@ -380,3 +394,27 @@ class LevelPipeline:
         padded = _pad_pairs(pairs, self.placement.padded_size(m))
         out = self.placement.dispatch(self._state, padded, write_children)
         return BatchHandle(self._materializer(out, m, inverse))
+
+
+class LegacyIntersectPipeline:
+    """Adapter: wrap an ``intersect_fn(bits, pairs, write_children)`` callable
+    (the older injection contract, e.g. ``core.sharded.make_sharded_intersect``)
+    in the pipeline interface. The level loop runs its host path on it:
+    host bitsets, classification on the host (``classes=None``)."""
+
+    fused_classify = False
+
+    def __init__(self, intersect_fn, bits):
+        from ...core.placement import HostPlacement
+
+        self._fn = intersect_fn
+        self._bits = bits
+        self.placement = HostPlacement()
+
+    def submit(self, pairs: np.ndarray, write_children: bool) -> BatchHandle:
+        child, counts = self._fn(self._bits, pairs, write_children)
+        out = (child, np.asarray(counts, dtype=np.int64), None)
+        return BatchHandle(lambda: out)
+
+    def retire(self) -> None:
+        self._bits = None

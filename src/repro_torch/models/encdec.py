@@ -9,22 +9,27 @@ Decode caches: ``{"self": [per layer {"k", "v"}], "cross": [per layer
 {"k", "v"}]}``, the self-attention KV cache (axis 1 the sequence) and the
 cross-attention K/V projected from the encoder memory once at prefill,
 which decoding never changes or grows.
+
+Training (``encdec_train_loss``) runs each encoder and decoder layer through
+a non-reentrant checkpoint under autograd, as the reference checkpoints its
+encoder and (in train mode) decoder scan bodies.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, act_dtype
 from .layers.attention import chunked_attention, decode_attention
 from .layers.common import NormScales, param, rms_norm
-from .layers.embeddings import Embed, embed_tokens, logits_head
+from .layers.embeddings import Embed, chunked_xent, embed_tokens, logits_head
 from .layers.mlp import MLP, apply_mlp
 from .layers.rope import apply_rope
 from .lm import Attention
 
-__all__ = ["EncDec", "encdec_encode", "encdec_logits", "encdec_prefill",
+__all__ = ["EncDec", "encdec_encode", "encdec_logits", "encdec_train_loss", "encdec_prefill",
            "encdec_decode", "init_encdec_cache"]
 
 
@@ -66,17 +71,25 @@ def _qkv_rope(p: Attention, x, cfg, positions):
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
 
-def encdec_encode(net: EncDec, frames: torch.Tensor) -> torch.Tensor:
-    """frames (B, S_enc, D) -> encoder memory (B, S_enc, D)."""
-    cfg = net.cfg
-    x = frames
+def _enc_layer(lp: EncLayer, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _qkv_rope(lp.attn, rms_norm(x, lp.norm1), cfg, positions)
+    o = chunked_attention(q, k, v, causal=False)
+    x = x + o.reshape(b, s, -1) @ lp.attn.wo.to(x.dtype)
+    return x + apply_mlp(lp.mlp, rms_norm(x, lp.norm2), cfg.mlp_act)
+
+
+def encdec_encode(net: EncDec, frames: torch.Tensor, remat: bool = True) -> torch.Tensor:
+    """frames (B, S_enc, D) -> encoder memory (B, S_enc, D); under autograd
+    with ``remat`` each layer runs through a checkpoint."""
+    x = frames
+    remat = remat and torch.is_grad_enabled()
     for lp in net.enc_layers:
-        q, k, v = _qkv_rope(lp.attn, rms_norm(x, lp.norm1), cfg, positions)
-        o = chunked_attention(q, k, v, causal=False)
-        x = x + o.reshape(b, s, -1) @ lp.attn.wo.to(x.dtype)
-        x = x + apply_mlp(lp.mlp, rms_norm(x, lp.norm2), cfg.mlp_act)
+        if remat:
+            x = checkpoint(_enc_layer, lp, net.cfg, x, use_reentrant=False)
+        else:
+            x = _enc_layer(lp, net.cfg, x)
     return rms_norm(x, net.enc_norm)
 
 
@@ -121,7 +134,12 @@ def _embed(net: EncDec, tokens, dt):
     return x * torch.tensor(net.cfg.d_model ** 0.5, dtype=dt, device=x.device)
 
 
-def _run_decoder(net: EncDec, x, memory, mode, cache=None, lengths=None):
+def _run_decoder(net: EncDec, x, memory, mode, cache=None, lengths=None, remat: bool = True):
+    if mode == "train" and remat and torch.is_grad_enabled():
+        for lp in net.dec_layers:
+            x, _, _ = checkpoint(_dec_layer, lp, net.cfg, x, memory, mode, None, None,
+                                 use_reentrant=False)
+        return rms_norm(x, net.final_norm), None, None
     new_self, new_cross = [], []
     for i, lp in enumerate(net.dec_layers):
         st = None if cache is None else cache["self"][i]
@@ -139,6 +157,13 @@ def encdec_logits(net: EncDec, frames, tokens, positions: slice | None = None):
     if positions is not None:
         x = x[:, positions]
     return logits_head(net.embed, x)
+
+
+def encdec_train_loss(net: EncDec, frames, tokens, labels, remat: bool = True):
+    """Mean next-token cross-entropy of the decoder over ``labels`` (B, S)."""
+    memory = encdec_encode(net, frames, remat)
+    x, _, _ = _run_decoder(net, _embed(net, tokens, memory.dtype), memory, "train", remat=remat)
+    return chunked_xent(net.embed, x, labels)
 
 
 def encdec_prefill(net: EncDec, frames, tokens):

@@ -79,7 +79,10 @@ def ssd_scan(x, dt, A, B, C, chunk: int, initial_state=None):
     # intra-chunk (diagonal block): L[i,j] = exp(cs_i - cs_j) for j <= i
     diff = cs[:, :, :, None, :] - cs[:, :, None, :, :]  # (b,nc,q,q,h)
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
-    L = torch.where(mask[None, None, :, :, None], torch.exp(diff), 0.0)
+    # exp of the masked difference, not a masked exp: above the diagonal the
+    # difference is positive and its exp overflows at long chunks, and the
+    # gradient of a masked inf is 0 * inf = NaN
+    L = torch.exp(diff.masked_fill(~mask[None, None, :, :, None], float("-inf")))
     CB = torch.einsum("bcign,bcjgn->bcijg", Cc, Bc).repeat_interleave(hpg, dim=-1)
     y_diag = torch.einsum("bcijh,bcjh,bcjhp->bcihp", CB * L, dtc, xc)
 

@@ -5,7 +5,10 @@ The model is an ``nn.ModuleList`` of per-layer blocks in layer order
 into scanned groups, and ``convert.lm_params_from_numpy`` unstacks them.
 Three modes share the block bodies:
 
-  * ``train``   full-sequence causal forward (no remat and no loss here);
+  * ``train``   full-sequence causal forward; under autograd each block runs
+                through a non-reentrant checkpoint (its activations are
+                recomputed in the backward pass), and ``lm_train_loss``
+                takes the chunked cross-entropy of its output;
   * ``prefill`` full-sequence causal, emits per-layer caches;
   * ``decode``  one token against the caches (attention KV / ring-buffer KV /
                 RG-LRU state / SSD state), which it updates in place.
@@ -21,11 +24,12 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, act_dtype
 from .layers.attention import chunked_attention, decode_attention, local_attention
 from .layers.common import NormScales, dense_init, param, rms_norm
-from .layers.embeddings import Embed, embed_tokens, logits_head
+from .layers.embeddings import Embed, chunked_xent, embed_tokens, logits_head
 from .layers.mla import MLA, mla_decode, mla_train_prefill
 from .layers.mlp import MLP, apply_mlp
 from .layers.moe import MoE, apply_moe
@@ -34,7 +38,7 @@ from .layers.rope import apply_rope
 from .layers.ssd import SSD, init_ssd_state, ssd_decode, ssd_train
 
 __all__ = ["Attention", "Block", "LM", "layout", "init_weights", "init_lm", "lm_forward",
-           "lm_logits", "lm_prefill", "lm_decode", "init_cache", "SEQ_LEAVES"]
+           "lm_logits", "lm_train_loss", "lm_prefill", "lm_decode", "init_cache", "SEQ_LEAVES"]
 
 # cache leaves whose axis 1 is the sequence
 SEQ_LEAVES = ("k", "v", "c_kv", "k_rope")
@@ -220,8 +224,17 @@ def _embed_inputs(net: LM, tokens, extra_embeds=None):
     return tok * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=tok.device)
 
 
-def lm_forward(net: LM, x: torch.Tensor, mode: str = "train", cache=None, lengths=None):
-    """Run the block stack on embeddings x. Returns (hidden (B,S,D), new cache | None)."""
+def lm_forward(net: LM, x: torch.Tensor, mode: str = "train", cache=None, lengths=None,
+               remat: bool = True):
+    """Run the block stack on embeddings x. Returns (hidden (B,S,D), new cache | None).
+
+    In train mode under autograd with ``remat``, each block runs through a
+    non-reentrant checkpoint (the reference checkpoints each scanned group;
+    a checkpoint changes no number)."""
+    if mode == "train" and remat and torch.is_grad_enabled():
+        for block in net.layers:
+            x, _ = checkpoint(block, x, mode, use_reentrant=False)
+        return rms_norm(x, net.final_norm), None
     new_cache = []
     for i, block in enumerate(net.layers):
         x, ns = block(x, mode, None if cache is None else cache[i], lengths)
@@ -238,6 +251,15 @@ def lm_logits(net: LM, tokens, extra_embeds=None, positions: slice | None = None
     if positions is not None:
         h = h[:, positions]
     return logits_head(net.embed, h)
+
+
+def lm_train_loss(net: LM, tokens, labels, extra_embeds=None, remat: bool = True):
+    """Mean next-token cross-entropy of ``labels`` (B, S_text) (-1: ignored)
+    over the text positions (a VLM's patch positions are dropped)."""
+    h, _ = lm_forward(net, _embed_inputs(net, tokens, extra_embeds), mode="train", remat=remat)
+    if extra_embeds is not None:
+        h = h[:, extra_embeds.shape[1]:]
+    return chunked_xent(net.embed, h, labels)
 
 
 def lm_prefill(net: LM, tokens, extra_embeds=None):

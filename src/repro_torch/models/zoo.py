@@ -1,12 +1,13 @@
 """Model zoo dispatcher: one step API over all ten architectures.
 
 ``build(cfg)`` returns a :class:`Model` whose ``init`` makes the network
-(an ``nn.Module``) and whose ``forward`` / ``prefill`` / ``decode`` /
-``init_cache`` take it as their first argument, as the reference's take the
+(an ``nn.Module``) and whose ``forward`` / ``train_loss`` / ``prefill`` /
+``decode`` / ``init_cache`` take it as their first argument, as the reference's take the
 parameter pytree. Decoder-only families route to ``models.lm``, the audio
 family to ``models.encdec``. A batch is a dict of tensors: ``tokens``
 (B, S) and, per frontend, ``frames`` (B, S_enc, D) or ``patches``
-(B, n_patches, D); decode adds ``positions`` (B,).
+(B, n_patches, D); training adds ``labels`` (B, S) (-1: ignored), decode
+``positions`` (B,).
 """
 
 from __future__ import annotations
@@ -66,6 +67,15 @@ class Model:
         if self.audio:
             return _encdec.encdec_logits(net, batch["frames"], batch["tokens"], positions)
         return _lm.lm_logits(net, batch["tokens"], self._extra(batch), positions)
+
+    def train_loss(self, net: nn.Module, batch: dict, remat: bool = True) -> torch.Tensor:
+        """Mean next-token cross-entropy (a float32 scalar), differentiable;
+        under autograd with ``remat`` each layer is recomputed in the
+        backward pass."""
+        if self.audio:
+            return _encdec.encdec_train_loss(net, batch["frames"], batch["tokens"],
+                                             batch["labels"], remat)
+        return _lm.lm_train_loss(net, batch["tokens"], batch["labels"], self._extra(batch), remat)
 
     @torch.inference_mode()
     def prefill(self, net: nn.Module, batch: dict):

@@ -1,7 +1,8 @@
 """The port imports neither JAX nor anything of the reference package
 ``repro``: checked in a fresh interpreter that mines on the CPU, builds the
 resident service there and generates from a reduced LM, and by a scan of
-every import statement in the port's sources and in chip_smoke.py."""
+every import statement in the port's sources and in chip_smoke.py. The
+interpreter also takes two training steps of a reduced LM."""
 
 import ast
 import os
@@ -37,6 +38,10 @@ for arch in ("gemma3-4b", "whisper-medium"):
     extra = {"frames": torch.zeros(2, 8, 64)} if arch == "whisper-medium" else None
     gen = generate(model, net, torch.ones(2, 5, dtype=torch.long), max_new=3, extra=extra)
     assert tuple(gen.tokens.shape) == (2, 3)
+import repro_torch.training, repro_torch.launch.train
+from repro_torch.launch.train import train
+rec = train("glm4-9b", reduced=True, steps=2, batch=2, seq=8, device="cpu")
+assert len(rec["losses"]) == 2
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
 print("BAD", bad)
