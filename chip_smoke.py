@@ -156,7 +156,35 @@ machine: the kernels build from the sources in the checkout into
    989 TFLOP/s); a ``torch.profiler`` trace of one warm step in this
    process (device busy and idle share, device time by operator); last,
    the CLI at reduced glm4-9b, 6 steps with checkpoints every 3, stopped
-   after step 3 and resumed, must give the uninterrupted run's losses.
+   after step 3 and resumed, must give the uninterrupted run's losses;
+16. dist: the LM scaffold over a mesh (``distributed.sharding``, the plan
+   step of ``training.train``, ``training.compression``,
+   ``distributed.pipeline``, ``serving.decode_attn``; no kernel of rows
+   1-11). The mesh entries repeat cuda:0 (one tensor and one step per
+   entry; no number is a spread over cards). The ten reduced architectures
+   each take one plan step on a 2x2 mesh of cuda:0 entries and on a 2x2
+   mesh of CPU entries (phase train's rule), and on a 1x1 card mesh, which
+   must equal the single-device step bit for bit; granite-moe-1b-a400m at
+   full width (phase train's cell: B = 8, S = 2,048, lr 3e-4) takes 3 plan
+   steps on 2x2 and the same 3 on 2x1 (dp = 2 on both: the same MoE
+   routing groups), which must agree under the rule, with falling losses
+   and every replicated slice bit-identical across its entries; the step
+   time, tokens/s, the share of the FLOP bound, the peak memory and the
+   time of the gathers and of the reduce printed; one int8-compressed step
+   on 2x1 against the exact plan step (``cast_bf16=False``) on the same
+   mesh and batch, within the reference test's bounds (loss 1e-4,
+   parameters 5e-3, a parameter moved by more than 1e-6); sequence-sharded
+   decode attention at gemma3-4b's global-layer shapes (B = 1, 8 heads over
+   4 KV heads of 256, a float32 cache of 131,072 positions) over 8 cuda:0
+   entries, window 0 and 1,024, within 2e-5 of ``decode_attention`` on the
+   whole cache, both timed; a 4-stage pipeline of RMS norm + GeGLU stages
+   at gemma3-4b's widths (2,560 -> 10,240) over 8 micro-batches of 2,048
+   tokens within 1e-5 (relative and absolute) of the sequential stack,
+   both timed, beside ``bubble_fraction(4, 8)``; last, ``python -m
+   repro_torch.launch.train --arch glm4-9b --reduced --mesh host --device
+   cuda:0`` (4x2 of cuda:0), 4 steps with checkpoints at 2 and 4, resumed
+   from step 2: the same losses and the same step-4 checkpoint, bit for
+   bit.
 
 Each kernel's ``bound_ms`` is the larger of its bytes over the memory rate
 and the least time of its operations. Phase 1 measures the card's rates of
@@ -2879,34 +2907,40 @@ def _train_batch(cfg, b: int, s: int, seed: int) -> dict:
     return batch
 
 
-def _moments_close(got: dict, want: dict, what: str, ulps: float) -> int:
+def _moments_close(got: dict, want: dict, what: str, ulps: float, phase: str = "train",
+                   dev="cpu") -> int:
     """Each leaf within TRAIN_STEP_TOL of its largest |want|, except at no
     more than TRAIN_FLIP_SHARE of the entries, which may differ by ``ulps``
     bf16 ulps of the leaf's largest more: a gradient term that two devices
     sum in other orders can round to the neighbouring bf16 value, and a
     gradient may be a sum of such terms (a tied embedding's gather and
-    head). Returns that count."""
+    head). Compared leaf by leaf on ``dev``. Returns that count."""
     flips = total = 0
     for name, w in want.items():
-        g = got[name].detach().float().cpu()
+        g = got[name].detach().to(dev, torch.float32)
+        w = w.detach().to(dev, torch.float32)
         d = (g - w).abs()
         tol = TRAIN_STEP_TOL * float(w.abs().max())
         over = d > tol
         flips += int(over.sum())
         total += d.numel()
         if (over & (d > ulps * BF16_ULP * float(w.abs().max()) + tol)).any():
-            fail(f"phase train: {what} {name} differs beyond one bf16 ulp "
+            fail(f"phase {phase}: {what} {name} differs beyond one bf16 ulp "
                  f"(max {float(d.max()):.3g})")
     if flips > TRAIN_FLIP_SHARE * total:
-        fail(f"phase train: {what}: {flips} of {total} entries differ by a bf16 ulp")
+        fail(f"phase {phase}: {what}: {flips} of {total} entries differ by a bf16 ulp")
     return flips
 
 
-def _adam_direction(opt: dict, name: str, cfg) -> torch.Tensor:
-    """AdamW's first-step direction m^ / (sqrt(v^) + eps), in float64 on the CPU."""
-    m = opt["m"][name].detach().cpu().double() / (1 - cfg.b1)
-    v = opt["v"][name].detach().cpu().double() / (1 - cfg.b2)
+def _adam_dir(m, v, step: int, cfg) -> torch.Tensor:
+    """AdamW's direction m^ / (sqrt(v^) + eps) after ``step`` steps, float64."""
+    m, v = m.detach().double() / (1 - cfg.b1 ** step), v.detach().double() / (1 - cfg.b2 ** step)
     return m / (v.sqrt() + cfg.eps)
+
+
+def _adam_direction(opt: dict, name: str, cfg) -> torch.Tensor:
+    """AdamW's first-step direction, in float64 on the CPU."""
+    return _adam_dir(opt["m"][name].cpu(), opt["v"][name].cpu(), 1, cfg)
 
 
 def _train_reduced(device) -> dict:
@@ -3115,6 +3149,427 @@ def phase_train(device) -> dict:
     return out
 
 
+DIST_ARCH = TRAIN_ARCH
+DIST_FULL = dict(steps=3, batch=8, seq=2_048, lr=3e-4)  # phase train's cell, cut to 3 steps
+DIST_MESHES = ("2x2", "2x1")  # dp = 2 on both: the same MoE routing groups
+DIST_ATTN = dict(batch=1, heads=8, kv=4, head_dim=256, length=131_072, shards=8)  # gemma3-4b global
+DIST_ATTN_TOL = 2e-5  # tests/test_decode_attn.py
+DIST_PIPE = dict(stages=4, micro=8, tokens=2_048, d_model=2_560, d_ff=10_240)  # gemma3-4b widths
+DIST_PIPE_TOL = 1e-5  # tests/test_pipeline.py: rtol and atol
+DIST_COMPRESSED = dict(loss=1e-4, param=5e-3, moved=1e-6)  # tests/test_compression.py
+
+
+def _dist_mesh(spec: str, device):
+    from repro_torch.launch.mesh import mesh_from_spec
+
+    d, m = (int(p) for p in spec.split("x"))
+    return mesh_from_spec(spec, devices=[device] * (d * m))
+
+
+def _hold_step(what: str, got: dict, want: dict, opt_cfg, lr: float, step: int,
+               dev) -> dict:
+    """Two steps' results (``params``, ``m``, ``v``: full tensors by name,
+    on any device) under the CPU tests' rule (tests/test_torch_train_rule.py):
+    the moments by ``_moments_close`` (one bf16 ulp for m, two for v), the
+    parameters within 1e-6 of what each side's own moments give. Compared
+    leaf by leaf on ``dev``."""
+    flips = _moments_close(got["m"], want["m"], f"{what}: m", 1, "dist", dev)
+    flips += _moments_close(got["v"], want["v"], f"{what}: v", 2, "dist", dev)
+    moved = 0
+    worst = 0.0
+    for name in want["params"]:
+        g = {k: got[k][name].to(dev, torch.float32) for k in ("params", "m", "v")}
+        w = {k: want[k][name].to(dev, torch.float32) for k in ("params", "m", "v")}
+        d = g["params"].double() - w["params"].double()
+        pred = -lr * (_adam_dir(g["m"], g["v"], step, opt_cfg)
+                      - _adam_dir(w["m"], w["v"], step, opt_cfg))
+        off = float((d - pred).abs().max())
+        if off > 1e-6 or float(d.abs().max()) > 2 * opt_cfg.lr:
+            fail(f"phase dist: {what}: param {name} differs by {off:.3g} from its moments' "
+                 "update")
+        worst = max(worst, off)
+        moved += int((d.abs() > 1e-6).sum())
+        del g, w, d, pred
+    return {"flips": flips, "moved": moved, "param_err": worst}
+
+
+def _replicas_identical(what: str, trees) -> int:
+    """Every entry holding the same slice of a leaf holds the same bits."""
+    n = 0
+    for tree in trees:
+        for name, s in tree.items():
+            first = {}
+            for c in s.coords():
+                key = tuple((sl.start, sl.stop) for sl in s.slices(c))
+                if key in first:
+                    if not torch.equal(first[key], s.shards[c]):
+                        fail(f"phase dist: {what}: replicated slice of {name} differs at {c}")
+                    n += 1
+                else:
+                    first[key] = s.shards[c]
+    return n
+
+
+def _dist_reduced(device) -> dict:
+    """The ten reduced architectures: one plan step on a 2x2 mesh of card
+    entries against the same step on a 2x2 mesh of CPU entries (the rule),
+    and a 1x1 card mesh against the single-device step, bit for bit."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.distributed.elastic import gather, redistribute
+    from repro_torch.distributed.sharding import make_plan
+    from repro_torch.models.zoo import build
+    from repro_torch.training import OptConfig, adamw_init, make_train_step
+    from repro_torch.training.train import sharded_adamw_init
+
+    opt_cfg = OptConfig(warmup_steps=1)
+    out = {"flips": 0, "moved": 0, "param_err": 0.0, "replicas": 0}
+    for name in sorted(ARCHS):
+        cfg = reduced(ARCHS[name])
+        model = build(cfg)
+        net = model.init(torch.Generator().manual_seed(0))
+        batch = _train_batch(cfg, TRAIN_B, TRAIN_S, seed=3)
+        res = {}
+        for label, dev, spec in (("card", device, "2x2"), ("cpu", torch.device("cpu"), "2x2"),
+                                 ("one", device, "1x1")):
+            plan = make_plan(_dist_mesh(spec, dev))
+            params = redistribute(net, plan)
+            opt = sharded_adamw_init(params, plan)
+            step, _ = make_train_step(model, opt_cfg, plan)
+            params, opt, met = step(params, opt, batch)
+            if label == "card":
+                out["replicas"] += _replicas_identical(f"reduced {name}",
+                                                       (params, opt["m"], opt["v"]))
+            res[label] = ({"params": gather(params), "m": gather(opt["m"]),
+                           "v": gather(opt["v"])}, {k: float(v) for k, v in met.items()})
+        (card, cm), (cpu, pm) = res["card"], res["cpu"]
+        if abs(cm["loss"] - pm["loss"]) > 1e-5 or \
+                abs(cm["grad_norm"] - pm["grad_norm"]) > 1e-5 * pm["grad_norm"]:
+            fail(f"phase dist: reduced {name} 2x2: card {cm} against cpu {pm}")
+        held = _hold_step(f"reduced {name} 2x2 card/cpu", card, cpu, opt_cfg, cm["lr"], 1,
+                          device)
+        for k in ("flips", "moved"):
+            out[k] += held[k]
+        out["param_err"] = max(out["param_err"], held["param_err"])
+        # 1x1 on the card: the single-device step, bit for bit
+        one_net = model.load({k: v.to(device, copy=True) for k, v in net.state_dict().items()})
+        o, m = make_train_step(model, opt_cfg)(one_net, adamw_init(dict(one_net.named_parameters())),
+                                               {k: v.to(device) for k, v in batch.items()})
+        got, gm = res["one"]
+        if any(gm[k] != float(m[k]) for k in ("loss", "grad_norm", "lr")):
+            fail(f"phase dist: reduced {name} 1x1 {gm} != single-device {m}")
+        for n, p in one_net.named_parameters():
+            if not (torch.equal(got["params"][n], p.detach().cpu())
+                    and torch.equal(got["m"][n], o["m"][n].cpu())
+                    and torch.equal(got["v"][n], o["v"][n].cpu())):
+                fail(f"phase dist: reduced {name} 1x1: {n} differs from the single-device step")
+    return out
+
+
+def _dist_full_run(device, spec: str, batches: list) -> dict:
+    """DIST_FULL's steps of the plan step at full width on ``spec`` (cuda:0
+    entries), from the seed's weights; the final state gathered to the host."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed.elastic import gather, redistribute
+    from repro_torch.distributed.sharding import make_plan
+    from repro_torch.models.zoo import build
+    from repro_torch.training import OptConfig, make_train_step
+    from repro_torch.training.train import sharded_adamw_init
+
+    model = build(ARCHS[DIST_ARCH])
+    opt_cfg = OptConfig(lr=DIST_FULL["lr"], warmup_steps=1, total_steps=DIST_FULL["steps"])
+    plan = make_plan(_dist_mesh(spec, device))
+    net = model.init(torch.Generator(device).manual_seed(0), device)
+    params = redistribute(net, plan)
+    del net
+    opt = sharded_adamw_init(params, plan)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    step, _ = make_train_step(model, opt_cfg, plan, timed=True)
+    rec = {"losses": [], "step_s": [], "gather_s": [], "reduce_s": [], "lr": []}
+    for b in batches:
+        _sync(device)
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, b)
+        rec["losses"].append(float(met["loss"]))
+        rec["step_s"].append(time.perf_counter() - t0)
+        rec["gather_s"].append(met["gather_s"])
+        rec["reduce_s"].append(met["reduce_s"])
+        rec["lr"].append(float(met["lr"]))
+    rec["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    rec["replicas"] = _replicas_identical(f"full width {spec}", (params, opt["m"], opt["v"]))
+    rec["state"] = {"params": gather(params), "m": gather(opt["m"]), "v": gather(opt["v"])}
+    rec["opt_cfg"] = opt_cfg
+    del params, opt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _dist_full_width(device) -> dict:
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.train import synthetic_lm_batches
+
+    cfg = ARCHS[DIST_ARCH]
+    stream = synthetic_lm_batches(cfg.vocab, DIST_FULL["batch"], DIST_FULL["seq"], 0)
+    batches = [{k: v.to(device) for k, v in next(stream).items()}
+               for _ in range(DIST_FULL["steps"])]
+    runs = {spec: _dist_full_run(device, spec, batches) for spec in DIST_MESHES}
+    a, b = (runs[s] for s in DIST_MESHES)
+    for spec, r in runs.items():
+        if not all(np.isfinite(r["losses"])) or not r["losses"][-1] < r["losses"][0]:
+            fail(f"phase dist: full width {spec}: the loss does not fall: {r['losses']}")
+    if any(abs(x - y) > 1e-5 for x, y in zip(a["losses"], b["losses"])):
+        fail(f"phase dist: full width losses {a['losses']} != {b['losses']}")
+    held = _hold_step(f"full width {DIST_MESHES[0]} against {DIST_MESHES[1]}", a["state"],
+                      b["state"], a["opt_cfg"], b["lr"][-1], DIST_FULL["steps"], device)
+    # the same data rows: the model axis splits storage only, so the bits
+    # should not move either (reported; the rule above is the check)
+    held["leaves_differing"] = sum(
+        not torch.equal(a["state"][k][n], b["state"][k][n])
+        for k in ("params", "m", "v") for n in a["state"][k])
+    flops, bound_ms = _train_flop_bound_ms(cfg, DIST_FULL["batch"], DIST_FULL["seq"])
+    out = {"held": held, "flops": flops, "bound_ms": bound_ms}
+    for spec, r in runs.items():
+        warm = r["step_s"][1:]
+        med = float(np.median(warm)) * 1e3
+        out[spec] = {k: r[k] for k in ("losses", "step_s", "gather_s", "reduce_s", "peak_gb",
+                                       "replicas")}
+        out[spec].update(step_ms_median=med,
+                         tokens_per_s=DIST_FULL["batch"] * DIST_FULL["seq"] / (med / 1e3),
+                         bound_share=bound_ms / med)
+    del runs, a, b
+    return out
+
+
+def _dist_compressed(device) -> dict:
+    """One compressed step on 2x1 at full width against the exact plan step
+    with cast_bf16=False on the same mesh, weights and batch (both route
+    two groups)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed.elastic import gather, place, redistribute
+    from repro_torch.distributed.sharding import make_plan
+    from repro_torch.launch.train import synthetic_lm_batches
+    from repro_torch.models.zoo import build
+    from repro_torch.training import OptConfig, make_train_step
+    from repro_torch.training.train import make_compressed_dp_step, sharded_adamw_init
+
+    cfg = ARCHS[DIST_ARCH]
+    model = build(cfg)
+    opt_cfg = OptConfig(lr=DIST_FULL["lr"], warmup_steps=1, total_steps=DIST_FULL["steps"])
+    batch = {k: v.to(device) for k, v in next(synthetic_lm_batches(
+        cfg.vocab, DIST_FULL["batch"], DIST_FULL["seq"], 0)).items()}
+    mesh = _dist_mesh("2x1", device)
+    start = model.init(torch.Generator(device).manual_seed(0), device)
+    plan = make_plan(mesh)
+    params = redistribute(start, plan)
+    step, _ = make_train_step(model, opt_cfg, plan, cast_bf16=False)
+    params, opt, exact_met = step(params, sharded_adamw_init(params, plan), batch)
+    exact = gather(params)  # on the host
+    del params, opt
+    torch.cuda.empty_cache()
+    names = [n for n, _ in start.named_parameters()]
+    rep = {n: place(p.detach(), mesh, ()) for n, p in start.named_parameters()}
+    opt = {"m": {n: s.map(torch.zeros_like) for n, s in rep.items()},
+           "v": {n: s.map(torch.zeros_like) for n, s in rep.items()},
+           "step": place(torch.zeros((), dtype=torch.int32), mesh, ())}
+    comp = make_compressed_dp_step(model, opt_cfg, mesh, ("data",))
+    _sync(device)
+    t0 = time.perf_counter()
+    rep, opt, met = comp(rep, opt, batch, torch.Generator(device).manual_seed(42))
+    loss = float(met["loss"])
+    step_s = time.perf_counter() - t0
+    d_loss = abs(loss - float(exact_met["loss"]))
+    d_param = max(float((rep[n].shards[0, 0] - exact[n].to(device)).abs().max()) for n in names)
+    moved = max(float((rep[n].shards[0, 0] - p.detach()).abs().max())
+                for n, p in start.named_parameters())
+    if d_loss >= DIST_COMPRESSED["loss"] or d_param >= DIST_COMPRESSED["param"] \
+            or moved <= DIST_COMPRESSED["moved"]:
+        fail(f"phase dist: compressed step: loss diff {d_loss:.3g}, param diff {d_param:.3g}, "
+             f"moved {moved:.3g} (bounds {DIST_COMPRESSED})")
+    if any(not torch.equal(s.shards[0, 0], s.shards[1, 0]) for s in rep.values()):
+        fail("phase dist: compressed step: the two replicas differ")
+    del rep, opt, exact, start
+    torch.cuda.empty_cache()
+    return {"loss_err": d_loss, "param_err": d_param, "moved": moved, "step_s": step_s,
+            "loss": loss}
+
+
+def _dist_decode_attention(device) -> dict:
+    """Sequence-sharded decode attention over a (data,) mesh of cuda:0
+    entries against decode_attention on the whole cache, at gemma3-4b's
+    global-layer shapes and a 131,072-position float32 cache."""
+    from repro_torch.distributed.elastic import place
+    from repro_torch.launch.mesh import mesh_from_shape
+    from repro_torch.models.layers.attention import decode_attention
+    from repro_torch.serving.decode_attn import seq_sharded_decode_attention
+
+    a = DIST_ATTN
+    g = torch.Generator(device).manual_seed(11)
+    L = a["length"]
+    q = torch.randn((a["batch"], 1, a["heads"], a["head_dim"]), generator=g, device=device)
+    k = torch.randn((a["batch"], L, a["kv"], a["head_dim"]), generator=g, device=device)
+    v = torch.randn((a["batch"], L, a["kv"], a["head_dim"]), generator=g, device=device)
+    lengths = torch.randint(L // 2, L + 1, (a["batch"],), generator=g, device=device)
+    mesh = mesh_from_shape((a["shards"],), ("data",), [device] * a["shards"])
+    spec = (None, "data", None, None)
+    ks, vs = place(k, mesh, spec), place(v, mesh, spec)
+    out = {}
+    for window in (0, 1_024):
+        fn = seq_sharded_decode_attention(mesh, seq_axis="data", window=window)
+        got = fn(q, ks, vs, lengths)
+        want = decode_attention(q, k, v, lengths, window=window)
+        err = float(((got - want).abs() - DIST_ATTN_TOL * want.abs()).max())
+        if not err <= DIST_ATTN_TOL:
+            fail(f"phase dist: decode attention window={window}: beyond {DIST_ATTN_TOL}")
+        out[window] = {"max_abs_err": float((got - want).abs().max()),
+                       "sharded_ms": time_ms(lambda: fn(q, ks, vs, lengths), 10),
+                       "whole_ms": time_ms(lambda: decode_attention(q, k, v, lengths,
+                                                                    window=window), 10)}
+    del q, k, v, ks, vs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_pipeline(device) -> dict:
+    """A 4-stage GPipe pipeline of RMS norm + GeGLU MLP stages at gemma3-4b's
+    widths over (stage,) cuda:0 entries against the sequential stack."""
+    from types import SimpleNamespace
+
+    from repro_torch.distributed.pipeline import bubble_fraction, pipeline_forward
+    from repro_torch.launch.mesh import mesh_from_shape
+    from repro_torch.models.layers.common import rms_norm
+    from repro_torch.models.layers.mlp import apply_mlp
+
+    p = DIST_PIPE
+    S, d, f = p["stages"], p["d_model"], p["d_ff"]
+    g = torch.Generator(device).manual_seed(12)
+    params = {"norm": torch.randn((S, d), generator=g, device=device) * 0.1,
+              "w_gate": torch.randn((S, d, f), generator=g, device=device) * d ** -0.5,
+              "w_up": torch.randn((S, d, f), generator=g, device=device) * d ** -0.5,
+              "w_down": torch.randn((S, f, d), generator=g, device=device) * f ** -0.5}
+    x = torch.randn((p["micro"] * p["tokens"], d), generator=g, device=device)
+
+    def stage(ps, xb):
+        w = SimpleNamespace(w_gate=ps["w_gate"], w_up=ps["w_up"], w_down=ps["w_down"])
+        return xb + apply_mlp(w, rms_norm(xb, ps["norm"]), "geglu")
+
+    def sequential():
+        h = x
+        for s in range(S):
+            h = stage({k: v[s] for k, v in params.items()}, h)
+        return h
+
+    mesh = mesh_from_shape((S,), ("stage",), [device] * S)
+    fwd = pipeline_forward(mesh, stage, n_micro=p["micro"])
+    y, ref = fwd(params, x), sequential()
+    bad = ((y - ref).abs() > DIST_PIPE_TOL + DIST_PIPE_TOL * ref.abs()).sum()
+    if int(bad):
+        fail(f"phase dist: pipeline: {int(bad)} entries beyond rtol=atol={DIST_PIPE_TOL} "
+             f"(max {float((y - ref).abs().max()):.3g})")
+    out = {"max_abs_err": float((y - ref).abs().max()),
+           "pipeline_ms": time_ms(lambda: fwd(params, x), 3, warmup=1),
+           "sequential_ms": time_ms(sequential, 3, warmup=1),
+           "bubble": bubble_fraction(S, p["micro"])}
+    del params, x, y, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_cli(work: Path) -> dict:
+    """``launch/train.py --mesh host --device cuda:0`` (4x2 of cuda:0) at
+    reduced glm4-9b: 4 steps with checkpoints at 2 and 4, then the step-2
+    checkpoint resumed; losses and the step-4 checkpoint bit for bit."""
+    from repro_torch.distributed.checkpoint import CheckpointManager
+
+    base = ["--arch", TRAIN_RESUME_ARCH, "--reduced", "--mesh", "host", "--device", "cuda:0",
+            "--steps", "4", "--ckpt-every", "2", "--batch", "8", "--seq", "32", "--log-every", "1"]
+    full = _train_cli([*base, "--ckpt-dir", str(work / "full")], work / "a.json")
+    shutil.copytree(work / "full", work / "part")
+    shutil.rmtree(work / "part" / "ckpt_0000000004")
+    resumed = _train_cli([*base, "--ckpt-dir", str(work / "part"), "--resume"], work / "b.json")
+    if full["mesh"] != {"shape": {"data": 4, "model": 2}, "n_devices": 8} or \
+            not full["device"].startswith("cuda"):
+        fail(f"phase dist: --mesh host ran on {full['device']} over {full['mesh']}")
+    if resumed["start_step"] != 2 or resumed["losses"] != full["losses"][2:]:
+        fail(f"phase dist: resumed {resumed['losses']} != {full['losses'][2:]}")
+    a, _ = CheckpointManager(str(work / "full")).restore(4)
+    b, _ = CheckpointManager(str(work / "part")).restore(4)
+    for key in ("params", "opt"):
+        for x, y in zip(_flat_leaves(a[key]), _flat_leaves(b[key])):
+            if not np.array_equal(np.asarray(x), np.asarray(y)):
+                fail(f"phase dist: the resumed step-4 checkpoint differs in {key}")
+    return {"losses": full["losses"], "resumed": resumed["losses"],
+            "tokens_per_s": full["tokens_per_s"]}
+
+
+def _flat_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat_leaves(tree[k])]
+    return [tree]
+
+
+def phase_dist(device) -> dict:
+    """The LM scaffold over a mesh (no kernel of rows 1-11): plan steps of
+    the reduced architectures, card against CPU; granite-moe-1b-a400m at
+    full width on 2x2 and 2x1; a compressed step; sequence-sharded decode
+    attention; the pipeline; and the --mesh host CLI resumed."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    red = _dist_reduced(device)
+    print(f"phase dist: reduced ok archs=10 one plan step on 2x2 cuda:0 == on 2x2 cpu (the "
+          f"rule: moment entries at one bf16 ulp {red['flips']}, param entries apart by more "
+          f"than 1e-6 {red['moved']}, param_err={red['param_err']:.3g}), replicated slices "
+          f"identical {red['replicas']}, 1x1 == single-device bit for bit "
+          f"s={time.perf_counter() - t_phase:.1f}", flush=True)
+    t0 = time.perf_counter()
+    full = _dist_full_width(device)
+    for spec in DIST_MESHES:
+        r = full[spec]
+        print(f"phase dist: full-width {DIST_ARCH} on {spec} of cuda:0 "
+              f"B={DIST_FULL['batch']} S={DIST_FULL['seq']} lr={DIST_FULL['lr']} "
+              f"losses={r['losses']} step_ms={[round(s * 1e3, 1) for s in r['step_s']]} "
+              f"median(after step 0)={r['step_ms_median']:.1f} "
+              f"tokens_per_s={r['tokens_per_s']:.0f} flop_bound_ms={full['bound_ms']:.2f} "
+              f"share={r['bound_share']:.4f} peak_gb={r['peak_gb']:.2f} "
+              f"gather_ms={[round(s * 1e3, 1) for s in r['gather_s']]} "
+              f"reduce_ms={[round(s * 1e3, 1) for s in r['reduce_s']]} "
+              f"replicated slices identical {r['replicas']}", flush=True)
+    h = full["held"]
+    print(f"phase dist: full width {DIST_MESHES[0]} == {DIST_MESHES[1]} under the rule after "
+          f"{DIST_FULL['steps']} steps (moment entries at one bf16 ulp {h['flips']}, param "
+          f"entries apart by more than 1e-6 {h['moved']}, param_err={h['param_err']:.3g}, "
+          f"leaves not bit-identical {h['leaves_differing']}) "
+          f"s={time.perf_counter() - t0:.1f}", flush=True)
+    comp = _dist_compressed(device)
+    print(f"phase dist: compressed step on 2x1 (int8, shared scale) against the exact plan "
+          f"step (cast_bf16=False): loss_err={comp['loss_err']:.3g} (< 1e-4) "
+          f"param_err={comp['param_err']:.3g} (< 5e-3) moved={comp['moved']:.3g} (> 1e-6) "
+          f"step_ms={comp['step_s'] * 1e3:.1f}", flush=True)
+    attn = _dist_decode_attention(device)
+    a = DIST_ATTN
+    print(f"phase dist: sequence-sharded decode attention B={a['batch']} H={a['heads']} "
+          f"KV={a['kv']} hd={a['head_dim']} L={a['length']} f32 over {a['shards']} cuda:0 "
+          f"entries == decode_attention (tol {DIST_ATTN_TOL}): " + "; ".join(
+              f"window={w} max_abs_err={r['max_abs_err']:.3g} sharded_ms={r['sharded_ms']:.3f} "
+              f"whole_ms={r['whole_ms']:.3f}" for w, r in attn.items()), flush=True)
+    pipe = _dist_pipeline(device)
+    p = DIST_PIPE
+    print(f"phase dist: pipeline {p['stages']} stages x (RMS norm + GeGLU {p['d_model']}->"
+          f"{p['d_ff']}) over {p['micro']} micro-batches of {p['tokens']} tokens == sequential "
+          f"(rtol=atol={DIST_PIPE_TOL}) max_abs_err={pipe['max_abs_err']:.3g} "
+          f"pipeline_ms={pipe['pipeline_ms']:.2f} sequential_ms={pipe['sequential_ms']:.2f} "
+          f"bubble_fraction={pipe['bubble']:.4f}", flush=True)
+    work = ROOT / "build" / "smoke_dist"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cli = _dist_cli(work)
+    shutil.rmtree(work, ignore_errors=True)
+    out = {"reduced": red, "full": full, "compressed": comp, "attn": attn, "pipe": pipe,
+           "cli": cli, "phase_s": time.perf_counter() - t_phase}
+    print(f"phase dist: ok --mesh host (4x2 of cuda:0) resumed from step 2 equals the "
+          f"uninterrupted run {cli['resumed']} phase_s={out['phase_s']:.1f}", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -3161,6 +3616,7 @@ def main() -> None:
     del poker_prep
     phase_lm(device)
     phase_train(device)
+    phase_dist(device)
 
     kernels = []
     for name, (replaces, _, _) in KERNELS.items():

@@ -1,7 +1,11 @@
 """Device meshes and multi-process launch plumbing.
 
-A :class:`Mesh` is a ``(data, model)`` grid of torch devices: candidate pairs
-shard over ``data``, bitset words over ``model`` (``core.sharded``). An entry
+A :class:`Mesh` is an ndarray of torch devices with one name per axis. The
+miner's is a ``(data, model)`` grid: candidate pairs shard over ``data``,
+bitset words over ``model`` (``core.sharded``); the LM's sharding plan
+(``distributed.sharding``) reads ``(data, model)`` or ``(pod, data, model)``,
+the pipeline a ``(stage,)`` axis and sequence-sharded decode attention a
+``(data,)`` one (:func:`mesh_from_shape`). An entry
 may repeat a device — ``mesh_from_spec("2x2", devices=["cuda:0"] * 4)`` runs
 the whole shard logic (one tensor and one launch per shard) on one card, as
 the reference's forced host device count does on the CPU.
@@ -31,6 +35,7 @@ __all__ = [
     "Mesh",
     "make_host_mesh",
     "mesh_for_device",
+    "mesh_from_shape",
     "mesh_from_spec",
     "distributed_init",
     "fleet_store",
@@ -42,14 +47,17 @@ _SPEC_ERROR = "--mesh spec must be 'MODEL', 'DATAxMODEL' or 'DCNxDATAxMODEL', go
 
 
 class Mesh:
-    """A ``(data, model)`` ndarray of ``torch.device`` entries."""
+    """An ndarray of ``torch.device`` entries, one name per axis (by default
+    the miner's ``(data, model)`` grid)."""
 
-    axis_names = ("data", "model")
-
-    def __init__(self, devices: np.ndarray):
-        if devices.ndim != 2 or devices.size == 0:
-            raise ValueError(f"a mesh is a non-empty (data, model) grid, got shape {devices.shape}")
+    def __init__(self, devices: np.ndarray, axis_names: tuple[str, ...] = ("data", "model")):
+        axis_names = tuple(axis_names)
+        if devices.size == 0 or devices.ndim != len(axis_names) or \
+                len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"a mesh is a non-empty grid with one distinct name per axis, got "
+                             f"shape {devices.shape} and names {axis_names}")
         self.devices = devices
+        self.axis_names = axis_names
 
     @property
     def shape(self) -> dict:
@@ -78,15 +86,20 @@ def _visible_devices(n: int) -> list[torch.device]:
     return [torch.device("cuda", i) for i in range(n)]
 
 
-def _grid(data: int, model: int, devices) -> Mesh:
-    n = data * model
+def mesh_from_shape(shape, axis_names, devices=None) -> Mesh:
+    """A mesh of ``shape`` over ``axis_names``; ``devices`` lists the entries
+    in row-major order and may repeat a device (default: the visible cards,
+    and too few raise)."""
+    shape = tuple(int(n) for n in shape)
+    n = int(np.prod(shape))
     devs = _visible_devices(n) if devices is None else [torch.device(d) for d in devices]
     if len(devs) != n:
-        raise ValueError(f"a {data}x{model} mesh needs {n} device entries, got {len(devs)}")
-    grid = np.empty((data, model), dtype=object)
+        raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs {n} device entries, "
+                         f"got {len(devs)}")
+    grid = np.empty(n, dtype=object)
     for i, d in enumerate(devs):
-        grid[i // model, i % model] = d
-    return Mesh(grid)
+        grid[i] = d
+    return Mesh(grid.reshape(shape), axis_names)
 
 
 def mesh_from_spec(spec: str, devices=None, *, num_processes: int = 1) -> Mesh:
@@ -113,7 +126,7 @@ def mesh_from_spec(spec: str, devices=None, *, num_processes: int = 1) -> Mesh:
         parts = parts[1:]
     if len(parts) == 1:
         parts = [1, parts[0]]
-    return _grid(parts[0], parts[1], devices)
+    return mesh_from_shape(parts, ("data", "model"), devices)
 
 
 def make_host_mesh(data: int = 4, model: int = 2, *, devices=None) -> Mesh:
@@ -131,7 +144,7 @@ def make_host_mesh(data: int = 4, model: int = 2, *, devices=None) -> Mesh:
         data, model = max(1, n // 2), min(2, n) if n > 1 else 1
         if data * model > n:
             data, model = n, 1
-    return _grid(data, model, devices[: data * model])
+    return mesh_from_shape((data, model), ("data", "model"), devices[: data * model])
 
 
 def mesh_for_device(spec: str | None, device, *, num_processes: int = 1) -> Mesh:

@@ -9,17 +9,27 @@ Runs on the card by default (``--device cuda``) and exits with an error when
 there is none; ``--device cpu`` runs on the CPU. The weights are float32
 masters from ``--seed`` (a generator on the device); the batches are the
 reference's synthetic token stream from the same seed, and a frontend stub's
-frames or patches are drawn from a generator on the device. One device only:
-``--mesh`` takes ``none`` (the sharding plan is not ported yet).
+frames or patches are drawn from a generator on the device.
+
+``--mesh host`` trains over the sharding plan (``distributed.sharding``,
+the ZeRO-3 step of ``training.train``) on the reference's host mesh shape,
+4x2 (data, model): with a bare ``--device cuda`` its entries are the
+visible cards and the shape shrinks to them, as the reference's does (1x1
+on one card); with an indexed device (``cuda:0``) or ``cpu`` all 8 entries
+repeat it, as the reference's forced host devices do on the CPU.
+``production`` and ``multipod`` are not ported yet. ``train(mesh=...)``
+takes any ``launch.mesh.Mesh`` with a ``model`` axis.
 
 ``--ckpt-dir`` saves ``{"params", "opt"}`` under the port's parameter names
 every ``--ckpt-every`` steps (written in the background); ``--resume`` takes
 up the newest one, and also one written by the reference's trainer (its
 stacked parameter tree is unstacked by ``convert.lm_params_from_numpy``),
 and skips the batches the run has already consumed, so a resumed run equals
-the uninterrupted one. ``--out`` writes JSON: the losses, each step's time,
-tokens/s and the peak of ``torch.cuda.max_memory_allocated`` (null on the
-CPU).
+the uninterrupted one. On a mesh the checkpoints hold the gathered logical
+arrays, and ``--resume`` places them on the run's mesh, whatever mesh wrote
+them. ``--out`` writes JSON: the losses, each step's time, tokens/s, the
+peak of ``torch.cuda.max_memory_allocated`` (null on the CPU) and the
+mesh's fingerprint (null without one).
 """
 
 from __future__ import annotations
@@ -35,11 +45,14 @@ from ..configs import get_arch, reduced as reduce_cfg
 from ..configs.base import act_dtype
 from ..convert import lm_params_from_numpy
 from ..distributed.checkpoint import CheckpointManager
+from ..distributed.elastic import gather, mesh_fingerprint, redistribute
+from ..distributed.sharding import make_plan
 from ..models.zoo import build
 from ..training.optimizer import OptConfig
 from ..training.train import init_train_state, make_train_step
+from .mesh import make_host_mesh
 
-__all__ = ["synthetic_lm_batches", "frontend_inputs", "train", "main"]
+__all__ = ["synthetic_lm_batches", "frontend_inputs", "host_mesh", "train", "main"]
 
 
 def synthetic_lm_batches(vocab: int, batch: int, seq: int, seed: int = 0):
@@ -105,12 +118,22 @@ def _restore(cm: CheckpointManager, net, opt_state, cfg) -> int:
     return int(meta["step"])
 
 
+def host_mesh(device):
+    """``--mesh host``: the reference's 4x2 host mesh over ``device`` (see
+    the module note)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return make_host_mesh()
+    return make_host_mesh(devices=[device] * 8)
+
+
 def train(arch: str, *, reduced: bool = False, steps: int = 100, batch: int = 8, seq: int = 64,
           lr: float = 3e-3, grad_accum: int = 1, ckpt_dir: str | None = None,
           ckpt_every: int = 50, resume: bool = False, seed: int = 0, log_every: int = 10,
-          device: str = "cuda") -> dict:
-    """Run the loop; returns the ``--out`` record."""
-    dev = torch.device(device)
+          device: str = "cuda", mesh=None) -> dict:
+    """Run the loop; returns the ``--out`` record. With ``mesh`` the run
+    trains over the sharding plan, from its first entry's device."""
+    dev = torch.device(device) if mesh is None else mesh.devices.flat[0]
     cfg = get_arch(arch)
     if reduced:
         cfg = reduce_cfg(cfg)
@@ -124,7 +147,21 @@ def train(arch: str, *, reduced: bool = False, steps: int = 100, batch: int = 8,
         start_step = _restore(cm, net, opt_state, cfg)
         print(f"resumed from step {start_step}", flush=True)
 
-    step_fn = make_train_step(model, opt_cfg, grad_accum=grad_accum)
+    if mesh is None:
+        step_fn = make_train_step(model, opt_cfg, grad_accum=grad_accum)
+        state = lambda: {"params": dict(net.named_parameters()), "opt": opt_state}
+    else:
+        plan = make_plan(mesh)
+        params = redistribute(net, plan)
+        opt_state = redistribute(opt_state, plan, "opt")
+        net = None  # the run's state is the placed trees
+        plan_step, _ = make_train_step(model, opt_cfg, plan, grad_accum=grad_accum)
+
+        def step_fn(_net, opt, b):
+            _, opt, metrics = plan_step(params, opt, b)
+            return opt, metrics
+
+        state = lambda: {"params": gather(params), "opt": gather(opt_state)}
     batches = synthetic_lm_batches(cfg.vocab, batch, seq, seed)
     frontend = torch.Generator(dev).manual_seed(seed)
     for _ in range(start_step):  # the batches the checkpointed run consumed
@@ -146,8 +183,7 @@ def train(arch: str, *, reduced: bool = False, steps: int = 100, batch: int = 8,
                   f"gnorm {float(metrics['grad_norm']):.3f} ({time.perf_counter() - t0:.1f}s)",
                   flush=True)
         if cm and (step + 1) % ckpt_every == 0:
-            cm.save(step + 1, {"params": dict(net.named_parameters()), "opt": opt_state},
-                    {"arch": cfg.name}, blocking=False)
+            cm.save(step + 1, state(), {"arch": cfg.name}, blocking=False)
     if cm:
         cm.wait()
     if losses:
@@ -160,6 +196,7 @@ def train(arch: str, *, reduced: bool = False, steps: int = 100, batch: int = 8,
         "start_step": start_step, "steps": steps, "losses": losses, "step_s": step_s,
         "tokens_per_s": tokens / sum(step_s) if step_s else None,
         "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
+        "mesh": None if mesh is None else mesh_fingerprint(mesh),
     }
 
 
@@ -173,7 +210,8 @@ def main(argv=None) -> None:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--mesh", default="none",
-                    help="only 'none' (one device): the sharding plan is not ported yet")
+                    choices=["none", "host", "production", "multipod"],
+                    help="none: one device; host: the 4x2 host mesh over --device")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
@@ -182,9 +220,9 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda", help="torch device (default: the card)")
     ap.add_argument("--out", default=None, help="write the run's JSON record here")
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        ap.error(f"--mesh {args.mesh}: the sharding plan is not ported yet; only --mesh none "
-                 "(one device) runs")
+    if args.mesh in ("production", "multipod"):
+        ap.error(f"--mesh {args.mesh}: the production meshes are not ported yet; --mesh none "
+                 "or host runs")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         ap.error(f"--device {args.device}: torch sees no CUDA card (pass --device cpu)")
     if args.batch % args.grad_accum:
@@ -193,7 +231,8 @@ def main(argv=None) -> None:
     rec = train(args.arch, reduced=args.reduced, steps=args.steps, batch=args.batch,
                 seq=args.seq, lr=args.lr, grad_accum=args.grad_accum, ckpt_dir=args.ckpt_dir,
                 ckpt_every=args.ckpt_every, resume=args.resume, seed=args.seed,
-                log_every=args.log_every, device=args.device)
+                log_every=args.log_every, device=args.device,
+                mesh=host_mesh(args.device) if args.mesh == "host" else None)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rec, f)

@@ -159,8 +159,9 @@ def encdec_logits(net: EncDec, frames, tokens, positions: slice | None = None):
     return logits_head(net.embed, x)
 
 
-def encdec_train_loss(net: EncDec, frames, tokens, labels, remat: bool = True):
-    """Mean next-token cross-entropy of the decoder over ``labels`` (B, S)."""
+def encdec_train_loss(net: EncDec, frames, tokens, labels, remat: bool = True, ctx=None):
+    """Mean next-token cross-entropy of the decoder over ``labels`` (B, S);
+    ``ctx`` has no effect here (no MoE layer)."""
     memory = encdec_encode(net, frames, remat)
     x, _, _ = _run_decoder(net, _embed(net, tokens, memory.dtype), memory, "train", remat=remat)
     return chunked_xent(net.embed, x, labels)

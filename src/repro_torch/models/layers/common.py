@@ -1,4 +1,12 @@
-"""Shared layer utilities: the RMS norm, the initializer and dtype casts.
+"""Shared layer utilities: the sharding context, the RMS norm, the
+initializers and dtype casts.
+
+``ShardCtx`` names the mesh axes that the sharding plan
+(``distributed.sharding``) reads: its only numerical effect is the number of
+an MoE's routing groups (``moe._n_groups``), one per entry of the data axes,
+as in the reference. ``shard`` returns its input: a torch tensor is one
+entry's, and nothing constrains a layout inside it (the plan stores the
+slices, and the train step splits the batch over the data rows).
 
 Parameters are float32 master weights, as in the reference, unless a caller
 stores them in bfloat16 (:func:`cast_params`): every layer reads a weight
@@ -9,16 +17,54 @@ constants, ``F32_LEAVES``) stay float32 either way.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch import nn
 
-__all__ = ["F32_LEAVES", "rms_norm", "dense_init", "param", "NormScales", "cast", "cast_params"]
+__all__ = ["F32_LEAVES", "ShardCtx", "shard", "rms_norm", "dense_init", "zeros_init", "param",
+           "NormScales", "cast", "cast_params"]
 
 # leaves read in float32 whatever the activation dtype
 F32_LEAVES = frozenset(
     {"norm1", "norm2", "norm_x", "final_norm", "enc_norm", "kv_norm", "gate_norm",
      "lam", "A_log", "D", "dt_bias"}
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Logical axes over a ``launch.mesh.Mesh``: ``dp`` the data-parallel
+    axes (``("data",)`` or ``("pod", "data")``), ``tp`` the tensor axis
+    (``"model"``) or None; ``sp`` is carried for the reference's API."""
+
+    mesh: object = None
+    dp: tuple[str, ...] = ()
+    tp: str | None = None
+    sp: bool = True
+
+    def axis_size(self, logical: str | tuple[str, ...] | None) -> int:
+        if self.mesh is None or logical is None:
+            return 1
+        axes = (logical,) if isinstance(logical, str) else logical
+        size = 1
+        for a in axes:
+            size *= self.mesh.shape[a]
+        return size
+
+    def resolve(self, name) -> tuple[str, ...] | str | None:
+        if name is None:
+            return None
+        if name == "dp":
+            return self.dp if self.dp else None
+        if name == "tp":
+            return self.tp
+        raise ValueError(f"unknown logical axis {name!r}")
+
+
+def shard(ctx: ShardCtx | None, x: torch.Tensor, names: tuple) -> torch.Tensor:
+    """``x`` unchanged: a torch tensor is one entry's (see the module note)."""
+    return x
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -34,6 +80,10 @@ def dense_init(t: torch.Tensor, generator: torch.Generator, in_axis: int = 0) ->
     std = t.shape[in_axis] ** -0.5
     with torch.no_grad():
         return nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+
+
+def zeros_init(shape, dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 def param(*shape: int, device=None) -> nn.Parameter:

@@ -21,12 +21,15 @@ __all__ = ["Embed", "init_embed", "embed_tokens", "logits_head", "chunked_xent"]
 
 
 class Embed(nn.Module):
-    """``embedding`` (V, D) and, when untied, ``lm_head`` (D, V)."""
+    """``embedding`` (V, D) and, when untied, ``lm_head`` (D, V). A tied
+    table keeps an empty ``lm_head`` slot, so a caller that reads the
+    parameters through substitutes (``training.train._reading``) can give
+    the head its own tensor of the same values."""
 
     def __init__(self, vocab: int, d_model: int, tie: bool, device=None):
         super().__init__()
         self.embedding = param(vocab, d_model, device=device)
-        self.lm_head = None if tie else param(d_model, vocab, device=device)
+        self.register_parameter("lm_head", None if tie else param(d_model, vocab, device=device))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         dense_init(self.embedding, generator, in_axis=1)

@@ -2,14 +2,18 @@
 
 Routing: softmax router -> top-k experts per token, weights renormalised over
 the selected k. Tokens are processed in **groups** (GShard semantics): the
-token axis is reshaped to (G, t_g) and each group scatters its tokens into a
+token axis is reshaped to (G, t_g), with G the number of entries of the
+data axes of the sharding context (lowered until it divides the tokens; one
+group without a context), and each group scatters its tokens into a
 per-group capacity buffer ``(G, E, C_g, d)``; an assignment beyond
 ``C_g = moe_capacity(t_g, E, k, factor)`` is dropped. Assignments take their
 slots in the flattened ``(token, k)`` order, so the same ones are dropped as
 in the reference. A dropped assignment goes to a spare buffer row, so no
 shape depends on the data and nothing waits on the device. Combine is a
-gather and a weighted segment sum over tokens (``index_add_``). Shared
-experts (DeepSeek-V2 style) run densely for every token.
+gather and a weighted sum of each token's k terms, added in order (the
+CPU's ``index_add_`` over tokens, bit for bit; on the card ``index_add_``
+adds with atomics in no fixed order, and the step would not repeat).
+Shared experts (DeepSeek-V2 style) run densely for every token.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import dense_init, param
+from .common import ShardCtx, dense_init, param
 
 __all__ = ["MoE", "apply_moe", "moe_capacity"]
 
@@ -50,13 +54,22 @@ class MoE(nn.Module):
                 dense_init(w, generator)
 
 
-def apply_moe(p: MoE, x: torch.Tensor, cfg, n_groups: int = 1) -> torch.Tensor:
+def _n_groups(t: int, ctx: ShardCtx | None) -> int:
+    """The data axes' size, lowered until it divides the ``t`` tokens."""
+    g = ctx.axis_size(ctx.dp) if (ctx is not None and ctx.mesh is not None) else 1
+    while t % g:
+        g -= 1
+    return max(g, 1)
+
+
+def apply_moe(p: MoE, x: torch.Tensor, cfg, ctx: ShardCtx | None = None,
+              n_groups: int | None = None) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D). cfg: configs.base.MoECfg."""
     dt = x.dtype
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
-    G = n_groups
+    G = n_groups or _n_groups(t, ctx)
     tg = t // G
     cap = moe_capacity(tg, e, k, cfg.capacity_factor)
     xg = x.reshape(G, tg, d)
@@ -86,9 +99,12 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg, n_groups: int = 1) -> torch.Tensor:
 
     gathered = out_buf[g_idx, scatter_e.clamp_max(e - 1), pos_c]  # (G, tg*k, d)
     gathered = gathered.masked_fill(~keep[..., None], 0.0)
-    weighted = gathered * gate_vals.reshape(G, tg * k).to(dt)[..., None]
-    out = torch.zeros((G, tg, d), dtype=dt, device=x.device)
-    out.index_add_(1, tok_idx, weighted)
+    weighted = (gathered * gate_vals.reshape(G, tg * k).to(dt)[..., None]).reshape(G, tg, k, d)
+    # each token's k terms added in order, rounding after each add: what
+    # index_add_ over tok_idx computes on the CPU, without the card's atomics
+    out = weighted[:, :, 0]
+    for j in range(1, k):
+        out = out + weighted[:, :, j]
     out = out.reshape(b, s, d)
 
     if p.sh_gate is not None:

@@ -159,7 +159,7 @@ class Block(NormScales):
                 ff = cfg.moe.first_dense_ff or cfg.d_ff
             self.mlp = MLP(d, ff, cfg.mlp_act, device)
 
-    def forward(self, x: torch.Tensor, mode: str, state=None, lengths=None):
+    def forward(self, x: torch.Tensor, mode: str, state=None, lengths=None, ctx=None):
         cfg = self.cfg
         h = rms_norm(x, self.norm1)
         if self.attn is not None:
@@ -183,7 +183,7 @@ class Block(NormScales):
                 mix, new_state = ssd_train(self.ssd, h, cfg.ssm, return_state=True)
         x = x + mix
         if self.moe is not None:
-            x = x + apply_moe(self.moe, rms_norm(x, self.norm2), cfg.moe)
+            x = x + apply_moe(self.moe, rms_norm(x, self.norm2), cfg.moe, ctx)
         elif self.mlp is not None:
             x = x + apply_mlp(self.mlp, rms_norm(x, self.norm2), cfg.mlp_act)
         return x, (None if mode == "train" else new_state)
@@ -225,19 +225,20 @@ def _embed_inputs(net: LM, tokens, extra_embeds=None):
 
 
 def lm_forward(net: LM, x: torch.Tensor, mode: str = "train", cache=None, lengths=None,
-               remat: bool = True):
+               remat: bool = True, ctx=None):
     """Run the block stack on embeddings x. Returns (hidden (B,S,D), new cache | None).
 
     In train mode under autograd with ``remat``, each block runs through a
     non-reentrant checkpoint (the reference checkpoints each scanned group;
-    a checkpoint changes no number)."""
+    a checkpoint changes no number). ``ctx`` (a ``ShardCtx``) sets the MoE
+    layers' routing groups."""
     if mode == "train" and remat and torch.is_grad_enabled():
         for block in net.layers:
-            x, _ = checkpoint(block, x, mode, use_reentrant=False)
+            x, _ = checkpoint(block, x, mode, None, None, ctx, use_reentrant=False)
         return rms_norm(x, net.final_norm), None
     new_cache = []
     for i, block in enumerate(net.layers):
-        x, ns = block(x, mode, None if cache is None else cache[i], lengths)
+        x, ns = block(x, mode, None if cache is None else cache[i], lengths, ctx)
         new_cache.append(ns)
     return rms_norm(x, net.final_norm), (None if mode == "train" else new_cache)
 
@@ -253,10 +254,11 @@ def lm_logits(net: LM, tokens, extra_embeds=None, positions: slice | None = None
     return logits_head(net.embed, h)
 
 
-def lm_train_loss(net: LM, tokens, labels, extra_embeds=None, remat: bool = True):
+def lm_train_loss(net: LM, tokens, labels, extra_embeds=None, remat: bool = True, ctx=None):
     """Mean next-token cross-entropy of ``labels`` (B, S_text) (-1: ignored)
     over the text positions (a VLM's patch positions are dropped)."""
-    h, _ = lm_forward(net, _embed_inputs(net, tokens, extra_embeds), mode="train", remat=remat)
+    h, _ = lm_forward(net, _embed_inputs(net, tokens, extra_embeds), mode="train", remat=remat,
+                      ctx=ctx)
     if extra_embeds is not None:
         h = h[:, extra_embeds.shape[1]:]
     return chunked_xent(net.embed, h, labels)

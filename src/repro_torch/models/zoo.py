@@ -68,14 +68,17 @@ class Model:
             return _encdec.encdec_logits(net, batch["frames"], batch["tokens"], positions)
         return _lm.lm_logits(net, batch["tokens"], self._extra(batch), positions)
 
-    def train_loss(self, net: nn.Module, batch: dict, remat: bool = True) -> torch.Tensor:
+    def train_loss(self, net: nn.Module, batch: dict, remat: bool = True, ctx=None
+                   ) -> torch.Tensor:
         """Mean next-token cross-entropy (a float32 scalar), differentiable;
         under autograd with ``remat`` each layer is recomputed in the
-        backward pass."""
+        backward pass. ``ctx`` (a ``ShardCtx``, ``Plan.ctx()``) routes an
+        MoE's tokens in one group per data entry, as the reference does."""
         if self.audio:
             return _encdec.encdec_train_loss(net, batch["frames"], batch["tokens"],
-                                             batch["labels"], remat)
-        return _lm.lm_train_loss(net, batch["tokens"], batch["labels"], self._extra(batch), remat)
+                                             batch["labels"], remat, ctx)
+        return _lm.lm_train_loss(net, batch["tokens"], batch["labels"], self._extra(batch), remat,
+                                 ctx)
 
     @torch.inference_mode()
     def prefill(self, net: nn.Module, batch: dict):

@@ -67,10 +67,14 @@ def global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
 @torch.no_grad()
 def adamw_update(grads: Mapping[str, torch.Tensor], opt_state: dict,
                  params: Mapping[str, torch.Tensor], cfg: OptConfig,
-                 decay: Collection[str]) -> tuple[dict, dict]:
+                 decay: Collection[str], gnorm: torch.Tensor | None = None
+                 ) -> tuple[dict, dict]:
     """One AdamW step: ``params`` and the moments are updated in place.
+    ``gnorm`` is the global gradient norm for clipping (by default that of
+    ``grads``; a sharded step passes the norm over every entry's slices).
     Returns (new opt_state, metrics ``{"lr", "grad_norm"}``, device tensors)."""
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / gnorm.clamp_min(1e-9), max=1.0)
     step = opt_state["step"] + 1
     lr = lr_at(cfg, step)

@@ -1,5 +1,6 @@
-"""The train step on one device: the loss and its gradients (with gradient
-accumulation over micro-batches), then AdamW on the float32 masters.
+"""The train step: the loss and its gradients (with gradient accumulation
+over micro-batches), then AdamW on the float32 masters; on one device, over
+a sharding plan's mesh, or with int8-compressed data-parallel gradients.
 
 ``make_train_step`` returns ``train_step(net, opt_state, batch) ->
 (opt_state, metrics)``, which updates ``net``'s parameters in place. With
@@ -10,20 +11,54 @@ those values, and the gradient flows back through the cast to the float32
 master. The other leaves, and the moments, stay float32. Nothing in the
 step waits on the device: ``metrics`` (``loss``, ``lr``, ``grad_norm``) are
 device tensors. The data loop and checkpoints live in ``launch/train.py``.
+
+With a plan (``distributed.sharding``) it returns ``(train_step,
+shardings_for)``, as the reference does, and ``train_step(params, opt_state,
+batch) -> (params, opt_state, metrics)`` is a ZeRO-3 step over the mesh's
+entries on trees that ``distributed.elastic.redistribute`` placed
+(``{name: Sharded}``; the moments likewise, the step count replicated):
+
+  * each data row (the entries that share their data coordinates) gathers
+    full float32 copies of the leaves onto its first entry, casts the
+    rank >= 2 ones to bfloat16, and computes the loss and gradients of its
+    slice of the batch, weighted by its share of the labelled tokens so that
+    the rows add up to the reference's global mean. When the data axes do
+    not divide the batch, the reference replicates it and still routes an
+    MoE's tokens in one group per data entry: then the first row computes
+    the whole batch once under ``plan.ctx()``;
+  * the rows' float32 gradients are summed in row order, and each entry
+    keeps its slice (a reduce-scatter);
+  * the clipping norm is the summed gradient's, each leaf counted once,
+    and AdamW updates every entry's own slices of the masters and moments
+    (replicated slices get the same update and stay bit-identical).
+
+The ``model`` axis splits the storage (parameters, moments and reduced
+gradients), not the compute: no layer runs tensor-parallel, and two meshes
+with the same data rows give the same bits.
+
+``make_compressed_dp_step`` is the reference's manual data-parallel step:
+each data entry computes the gradients of its batch slice on its own
+replica, and ``compression.compressed_psum`` reduces them as int8 at a
+shared scale.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..convert import reference_rank2_names
+from ..distributed.elastic import Sharded, place
 from ..models.zoo import Model
-from .optimizer import OptConfig, adamw_init, adamw_update
+from .compression import compressed_psum
+from .optimizer import OptConfig, adamw_init, adamw_update, global_norm
 
-__all__ = ["init_train_state", "make_train_step"]
+__all__ = ["init_train_state", "make_train_step", "make_compressed_dp_step",
+           "sharded_adamw_init", "data_rows"]
 
 
 def init_train_state(model: Model, generator: torch.Generator, opt_cfg: OptConfig,
@@ -51,12 +86,22 @@ def _reading(net: nn.Module, tensors: dict):
             mod._parameters[leaf] = p
 
 
-def make_train_step(model: Model, opt_cfg: OptConfig, grad_accum: int = 1,
-                    cast_bf16: bool = True):
+def make_train_step(model: Model, opt_cfg: OptConfig, plan=None, grad_accum: int = 1,
+                    cast_bf16: bool = True, timed: bool = False):
     """``grad_accum > 1`` splits the leading batch axis into micro-batches
     and sums their float32 gradients (and losses), then divides by
-    ``grad_accum``: the reference's scan over micro-batches."""
+    ``grad_accum``: the reference's scan over micro-batches. With ``plan``:
+    ``(train_step, shardings_for)`` (the module note); ``timed`` then
+    synchronises the devices around the gathers and the reduce and adds
+    their host-clock seconds to the metrics (``gather_s``, ``reduce_s``)."""
     rank2 = reference_rank2_names(model.cfg)
+    if plan is not None:
+        def shardings_for(abstract_net):
+            pspec = plan.param_shardings(abstract_net)
+            return pspec, {"m": pspec, "v": pspec, "step": plan.replicated()}
+
+        return (_plan_step(model, opt_cfg, plan, grad_accum, cast_bf16, rank2, timed),
+                shardings_for)
 
     def loss_and_grads(net: nn.Module, params: dict, batch: dict) -> torch.Tensor:
         """The loss of ``batch``; its gradients are added into ``.grad``."""
@@ -93,3 +138,226 @@ def make_train_step(model: Model, opt_cfg: OptConfig, grad_accum: int = 1,
         return opt_state, dict(metrics, loss=loss)
 
     return train_step
+
+
+def data_rows(mesh, dp_axes) -> list[list[tuple]]:
+    """The mesh's entries by data row: row ``r`` (row-major over
+    ``dp_axes``) lists the coordinates that share its data coordinates, in
+    row-major order; its first entry computes."""
+    dims = [mesh.axis_names.index(a) for a in dp_axes]
+    n_rows = int(np.prod([mesh.devices.shape[d] for d in dims])) if dims else 1
+    rows: list[list[tuple]] = [[] for _ in range(n_rows)]
+    for c in np.ndindex(*mesh.devices.shape):
+        r = 0
+        for d in dims:
+            r = r * mesh.devices.shape[d] + c[d]
+        rows[r].append(c)
+    return rows
+
+
+def sharded_adamw_init(params: dict, plan) -> dict:
+    """AdamW state for placed parameters: float32 zero moments with each
+    parameter's spec, and a replicated int32 step count."""
+
+    def zeros(s: Sharded) -> Sharded:
+        return s.map(lambda t: torch.zeros(t.shape, dtype=torch.float32, device=t.device))
+
+    return {"m": {n: zeros(s) for n, s in params.items()},
+            "v": {n: zeros(s) for n, s in params.items()},
+            "step": place(torch.zeros((), dtype=torch.int32), plan.mesh, plan.replicated())}
+
+
+def _sync(devices) -> None:
+    for d in {torch.device(d) for d in devices}:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def _micro(batch: dict, i: int, n: int) -> dict:
+    return {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i] for k, v in batch.items()}
+
+
+def _update_entries(params: dict, opt: dict, grads_at, gnorm_at, opt_cfg, rank2) -> dict:
+    """AdamW on every entry's own slices; ``grads_at(c)`` gives entry ``c``'s
+    gradient slices and ``gnorm_at(c)`` the clipping norm on its device.
+    Returns entry (0, ...)'s metrics."""
+    first = None
+    for c in opt["step"].coords():
+        mine = {n: s.shards[c] for n, s in params.items()}
+        state = {"m": {n: s.shards[c] for n, s in opt["m"].items()},
+                 "v": {n: s.shards[c] for n, s in opt["v"].items()},
+                 "step": opt["step"].shards[c]}
+        state, met = adamw_update(grads_at(c), state, mine, opt_cfg, rank2, gnorm_at(c))
+        opt["step"].shards[c] = state["step"]
+        first = met if first is None else first
+    return first
+
+
+TABLE, HEAD = "embed.embedding", "embed.lm_head"
+
+
+def _plan_step(model: Model, opt_cfg: OptConfig, plan, grad_accum: int, cast_bf16: bool,
+               rank2, timed: bool):
+    net = model.abstract_params()  # the layers; every leaf is read through _reading
+    tied = net.embed.lm_head is None
+    mesh = plan.mesh
+    rows = data_rows(mesh, plan.dp)
+    row_dev = [mesh.devices[r[0]] for r in rows]
+    dev0 = row_dev[0]
+
+    def row_grads(params, cast, partial, mb, dev, weight, ctx, clock):
+        """(weighted loss on dev0, float32 gradients by name) of one row's
+        micro-batch ``mb`` on ``dev``.
+
+        One row reads bfloat16 copies of the ``cast`` leaves, as one device
+        does: each use's gradient is rounded to bfloat16 on its way to the
+        float32 copy. Rows that split the batch (``partial``) read float32
+        copies holding the bfloat16 values instead, so their gradients stay
+        float32 and the caller rounds their sum once, as the whole batch's
+        is rounded; a tied table then gives its head its own copy (one
+        device rounds the gather's and the head's gradients apart), and its
+        gather reads the bfloat16 values, whose per-token rounding happens
+        within a row."""
+        t0 = time.perf_counter()
+        leaves = {}
+        for n, s in params.items():
+            t = s.gather(dev)
+            leaves[n] = (t.to(torch.bfloat16).float() if partial and n in cast else t
+                         ).requires_grad_()
+        if not partial:
+            reads = {n: t.to(torch.bfloat16) if n in cast else t for n, t in leaves.items()}
+        else:
+            reads = dict(leaves)
+            if tied and TABLE in cast:
+                leaves[HEAD] = leaves[TABLE].detach().clone().requires_grad_()
+                reads.update({HEAD: leaves[HEAD].T, TABLE: leaves[TABLE].to(torch.bfloat16)})
+        clock.tick("gather_s", t0)
+        mb = {k: v.to(dev) for k, v in mb.items()}
+        with _reading(net, reads):
+            loss = model.train_loss(net, mb, ctx=ctx)
+            (loss if weight is None else loss * weight).backward()
+        loss = loss.detach().to(dev0)
+        return (loss if weight is None else loss * weight), {
+            n: torch.zeros_like(t) if t.grad is None else t.grad for n, t in leaves.items()}
+
+    def train_step(params: dict, opt: dict, batch: dict):
+        clock = _Clock(timed, mesh)
+        B = next(iter(batch.values())).shape[0] // grad_accum
+        split = B % len(rows) == 0
+        partial = split and len(rows) > 1
+        cast = {n for n, s in params.items()
+                if cast_bf16 and n in rank2 and s.dtype == torch.float32}
+        loss = grads = None
+        for i in range(grad_accum):
+            mb = _micro(batch, i, grad_accum)
+            if split:  # each row its slice, weighted by its share of the labels
+                counts = (mb["labels"] >= 0).reshape(len(rows), -1).sum(1).tolist()
+                parts = [({k: v.reshape(len(rows), B // len(rows), *v.shape[1:])[r]
+                           for k, v in mb.items()}, r,
+                          counts[r] / max(sum(counts), 1) if partial else None, None)
+                         for r in range(len(rows))]
+            else:  # replicated, as the reference does: the first row, G groups
+                parts = [(mb, 0, None, plan.ctx())]
+            micro_grads = None
+            for part, r, weight, ctx in parts:
+                l, g = row_grads(params, cast, partial, part, row_dev[r], weight, ctx, clock)
+                loss = l if loss is None else loss + l
+                t0 = time.perf_counter()
+                if micro_grads is None:
+                    micro_grads = {n: t.to(dev0) for n, t in g.items()}
+                else:
+                    for n, t in g.items():
+                        micro_grads[n] += t.to(dev0)
+                del g
+                clock.tick("reduce_s", t0)
+            if partial:
+                for n in cast:
+                    micro_grads[n] = micro_grads[n].to(torch.bfloat16).float()
+                if tied and TABLE in cast:
+                    micro_grads[TABLE] = (micro_grads[TABLE].to(torch.bfloat16)
+                                          + micro_grads.pop(HEAD).to(torch.bfloat16)).float()
+            if grads is None:
+                grads = micro_grads
+            else:
+                for n, t in micro_grads.items():
+                    grads[n] += t
+            del micro_grads
+        if grad_accum > 1:
+            loss = loss / grad_accum
+            for g in grads.values():
+                g.div_(grad_accum)
+        t0 = time.perf_counter()
+        # the clip norm counts each leaf once, in one order whatever the
+        # mesh's split, so the `model` axis changes no number
+        gnorm = global_norm(grads)
+        # the reduce-scatter: each entry keeps its slice of the summed gradients
+        mine = {c: {n: grads[n][params[n].slices(c)].to(mesh.devices[c], copy=True)
+                    for n in params} for c in opt["step"].coords()}
+        del grads
+        clock.tick("reduce_s", t0)
+        met = _update_entries(params, opt, lambda c: mine[c],
+                              lambda c: gnorm.to(mesh.devices[c]), opt_cfg, rank2)
+        return params, opt, dict(met, loss=loss, **clock.seconds)
+
+    return train_step
+
+
+class _Clock:
+    """Host-clock seconds of the gathers and the reduce, each ending in a
+    device sync; off (no sync, no keys) unless ``timed``."""
+
+    def __init__(self, timed: bool, mesh):
+        self.timed, self.devices = timed, list(mesh.devices.flat)
+        self.seconds = {"gather_s": 0.0, "reduce_s": 0.0} if timed else {}
+
+    def tick(self, key: str, t0: float) -> None:
+        if self.timed:
+            _sync(self.devices)
+            self.seconds[key] += time.perf_counter() - t0
+
+
+def make_compressed_dp_step(model: Model, opt_cfg: OptConfig, mesh, dp_axes):
+    """The manual data-parallel step: ``step(params, opt_state, batch,
+    generator) -> (params, opt_state, metrics)`` on replicated placed trees
+    (``distributed.elastic.place`` with spec ``()``). Each data row's first
+    entry computes the loss and gradients of its slice of the batch on its
+    own replica (float32, no bfloat16 cast, no sharding context: an MoE
+    routes one group per row, as in the reference); the gradients are
+    reduced by ``compression.compressed_psum`` (int8 at a shared scale,
+    stochastic rounding from ``generator``), the losses averaged, and every
+    entry takes the same AdamW update."""
+    dp_axes = tuple(dp_axes)
+    net = model.abstract_params()
+    rank2 = reference_rank2_names(model.cfg)
+    rows = data_rows(mesh, dp_axes)
+    reduce = compressed_psum(mesh, dp_axes)
+
+    def step(params: dict, opt: dict, batch: dict, generator: torch.Generator):
+        B = next(iter(batch.values())).shape[0]
+        if B % len(rows):
+            raise ValueError(f"batch {B} does not split over {len(rows)} data entries")
+        grads, losses = [], []
+        for r, row in enumerate(rows):
+            dev = mesh.devices[row[0]]
+            leaves = {n: s.shards[row[0]].detach().requires_grad_() for n, s in params.items()}
+            mb = {k: v.reshape(len(rows), B // len(rows), *v.shape[1:])[r].to(dev)
+                  for k, v in batch.items()}
+            with _reading(net, leaves):
+                loss = model.train_loss(net, mb)
+                loss.backward()
+            losses.append(loss.detach())
+            grads.append({n: torch.zeros_like(t) if t.grad is None else t.grad
+                          for n, t in leaves.items()})
+            del leaves
+        reduced = reduce(grads, generator)
+        del grads
+        dev0 = mesh.devices[rows[0][0]]
+        loss = torch.stack([l.to(dev0) for l in losses]).sum() / len(rows)
+        row_of = {c: r for r, row in enumerate(rows) for c in row}
+        met = _update_entries(
+            params, opt,
+            lambda c: {n: g.to(mesh.devices[c]) for n, g in reduced[row_of[c]].items()},
+            lambda c: None, opt_cfg, rank2)
+        return params, opt, dict(met, loss=loss)
+
+    return step

@@ -2,7 +2,9 @@
 ``repro``: checked in a fresh interpreter that mines on the CPU, builds the
 resident service there and generates from a reduced LM, and by a scan of
 every import statement in the port's sources and in chip_smoke.py. The
-interpreter also takes two training steps of a reduced LM."""
+interpreter also takes two training steps of a reduced LM, imports the
+distributed modules and takes one sharded step on a 2x2 mesh of CPU
+entries."""
 
 import ast
 import os
@@ -42,6 +44,13 @@ import repro_torch.training, repro_torch.launch.train
 from repro_torch.launch.train import train
 rec = train("glm4-9b", reduced=True, steps=2, batch=2, seq=8, device="cpu")
 assert len(rec["losses"]) == 2
+import repro_torch.distributed.sharding, repro_torch.distributed.elastic
+import repro_torch.distributed.pipeline, repro_torch.training.compression
+import repro_torch.serving.decode_attn
+from repro_torch.launch.mesh import mesh_from_spec
+rec = train("glm4-9b", reduced=True, steps=1, batch=4, seq=8,
+            mesh=mesh_from_spec("2x2", devices=["cpu"] * 4))
+assert len(rec["losses"]) == 1 and rec["mesh"]["n_devices"] == 4
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
 print("BAD", bad)
