@@ -165,15 +165,22 @@ machine: the kernels build from the sources in the checkout into
    each take one plan step on a 2x2 mesh of cuda:0 entries and on a 2x2
    mesh of CPU entries (phase train's rule), and on a 1x1 card mesh, which
    must equal the single-device step bit for bit; granite-moe-1b-a400m at
-   full width (phase train's cell: B = 8, S = 2,048, lr 3e-4) takes 3 plan
-   steps on 2x2 and the same 3 on 2x1 (dp = 2 on both: the same MoE
-   routing groups), which must agree under the rule, with falling losses
-   and every replicated slice bit-identical across its entries; the step
-   time, tokens/s, the share of the FLOP bound, the peak memory and the
-   time of the gathers and of the reduce printed; one int8-compressed step
-   on 2x1 against the exact plan step (``cast_bf16=False``) on the same
-   mesh and batch, within the reference test's bounds (loss 1e-4,
-   parameters 5e-3, a parameter moved by more than 1e-6); sequence-sharded
+   full width (phase train's cell: B = 8, S = 2,048, lr 3e-4) takes one
+   plan step on a 1x1 card mesh, which must equal the single-device step
+   bit for bit, then 3 plan steps on 2x2 and the same 3 on 2x1 (dp = 2 on
+   both: the same MoE routing groups), which must agree under the rule,
+   with falling losses and every replicated slice bit-identical across its
+   entries; the step time, tokens/s, the share of the FLOP bound and the
+   peak memory printed, and a ``torch.profiler`` trace of one more 2x2
+   step (device busy and idle share, the device time under the step's
+   ``plan_step.gather`` and ``plan_step.reduce`` ranges); one
+   int8-compressed step on 2x1 against the exact plan step
+   (``cast_bf16=False``) on the same mesh and batch, within the reference
+   test's bounds (loss 1e-4, parameters 5e-3, a parameter moved by more
+   than 1e-6), and its reduced gradient, read back from its first moments
+   and its gradient norm, within each leaf's shared int8 step of the exact
+   step's; the same check must fail with the reference's biased reduce and
+   with the sum that is not divided by the entries (controls); sequence-sharded
    decode attention at gemma3-4b's global-layer shapes (B = 1, 8 heads over
    4 KV heads of 256, a float32 cache of 131,072 positions) over 8 cuda:0
    entries, window 0 and 1,024, within 2e-5 of ``decode_attention`` on the
@@ -3265,9 +3272,13 @@ def _dist_reduced(device) -> dict:
     return out
 
 
-def _dist_full_run(device, spec: str, batches: list) -> dict:
+def _dist_full_run(device, spec: str, batches: list, profile: bool = False) -> dict:
     """DIST_FULL's steps of the plan step at full width on ``spec`` (cuda:0
-    entries), from the seed's weights; the final state gathered to the host."""
+    entries), from the seed's weights; the final state gathered to the host.
+    With ``profile``, one more step (on the first batch) under
+    ``torch.profiler``: wall time, device busy time, and the device time
+    of the kernels launched under the step's ``plan_step.gather`` and
+    ``plan_step.reduce`` ranges."""
     from repro_torch.configs import ARCHS
     from repro_torch.distributed.elastic import gather, redistribute
     from repro_torch.distributed.sharding import make_plan
@@ -3284,24 +3295,90 @@ def _dist_full_run(device, spec: str, batches: list) -> dict:
     opt = sharded_adamw_init(params, plan)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
-    step, _ = make_train_step(model, opt_cfg, plan, timed=True)
-    rec = {"losses": [], "step_s": [], "gather_s": [], "reduce_s": [], "lr": []}
+    step, _ = make_train_step(model, opt_cfg, plan)
+    rec = {"losses": [], "step_s": [], "lr": [], "grad_norm": []}
     for b in batches:
         _sync(device)
         t0 = time.perf_counter()
         params, opt, met = step(params, opt, b)
         rec["losses"].append(float(met["loss"]))
         rec["step_s"].append(time.perf_counter() - t0)
-        rec["gather_s"].append(met["gather_s"])
-        rec["reduce_s"].append(met["reduce_s"])
         rec["lr"].append(float(met["lr"]))
+        rec["grad_norm"].append(float(met["grad_norm"]))
     rec["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
     rec["replicas"] = _replicas_identical(f"full width {spec}", (params, opt["m"], opt["v"]))
     rec["state"] = {"params": gather(params), "m": gather(opt["m"]), "v": gather(opt["v"])}
     rec["opt_cfg"] = opt_cfg
+    if profile:
+        rec["profile"] = _dist_profile(device, lambda: step(params, opt, batches[0]))
     del params, opt
     torch.cuda.empty_cache()
     return rec
+
+
+def _dist_profile(device, run) -> dict:
+    """``run()`` (one plan step) under ``torch.profiler`` (CPU and CUDA
+    activity): the window's wall time (ending in a sync), the device's busy
+    time, and the device time of the kernels launched under each of the
+    step's profiler ranges (``plan_step.gather``, ``plan_step.reduce``),
+    with the number of times each range was entered."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        _sync(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, launches = 0.0, 0
+    ranges = {"plan_step.gather": [0.0, 0], "plan_step.reduce": [0.0, 0]}
+    for e in prof.events():
+        if e.device_type.name == "CUDA" and e.name != "Command Buffer Full" \
+                and e.name not in ranges:
+            busy_ms += e.time_range.elapsed_us() / 1e3
+            launches += 1
+        elif e.device_type.name == "CPU" and e.name in ranges:
+            ranges[e.name][0] += e.device_time_total / 1e3
+            ranges[e.name][1] += 1
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+            "launches": launches, "gather_ms": ranges["plan_step.gather"][0],
+            "gathers": ranges["plan_step.gather"][1],
+            "reduce_ms": ranges["plan_step.reduce"][0],
+            "reduces": ranges["plan_step.reduce"][1]}
+
+
+def _dist_one_by_one(device, batch: dict) -> dict:
+    """One plan step at full width on a 1x1 card mesh against phase
+    train's single-device step from the same weights and batch: the loss,
+    the gradient norm, and every parameter and moment, bit for bit."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.zoo import build
+    from repro_torch.training import OptConfig, adamw_init, make_train_step
+
+    model = build(ARCHS[DIST_ARCH])
+    opt_cfg = OptConfig(lr=DIST_FULL["lr"], warmup_steps=1, total_steps=DIST_FULL["steps"])
+    net = model.init(torch.Generator(device).manual_seed(0), device)
+    opt, met = make_train_step(model, opt_cfg)(net, adamw_init(dict(net.named_parameters())),
+                                               batch)
+    want = {"params": {n: p.detach().cpu() for n, p in net.named_parameters()},
+            "m": {n: t.cpu() for n, t in opt["m"].items()},
+            "v": {n: t.cpu() for n, t in opt["v"].items()}}
+    loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+    del net, opt, met
+    torch.cuda.empty_cache()
+    one = _dist_full_run(device, "1x1", [batch])
+    if one["losses"][0] != loss or one["grad_norm"][0] != gnorm:
+        fail(f"phase dist: full width 1x1: loss {one['losses'][0]} and norm "
+             f"{one['grad_norm'][0]} != single-device {loss} and {gnorm}")
+    n = 0
+    for k in ("params", "m", "v"):
+        for name, t in want[k].items():
+            if not torch.equal(one["state"][k][name], t):
+                fail(f"phase dist: full width 1x1: {k} {name} differs from the single-device "
+                     "step")
+            n += 1
+    del one, want
+    return {"loss": loss, "grad_norm": gnorm, "leaves_equal": n}
 
 
 def _dist_full_width(device) -> dict:
@@ -3312,7 +3389,9 @@ def _dist_full_width(device) -> dict:
     stream = synthetic_lm_batches(cfg.vocab, DIST_FULL["batch"], DIST_FULL["seq"], 0)
     batches = [{k: v.to(device) for k, v in next(stream).items()}
                for _ in range(DIST_FULL["steps"])]
-    runs = {spec: _dist_full_run(device, spec, batches) for spec in DIST_MESHES}
+    one = _dist_one_by_one(device, batches[0])
+    runs = {spec: _dist_full_run(device, spec, batches, profile=spec == DIST_MESHES[0])
+            for spec in DIST_MESHES}
     a, b = (runs[s] for s in DIST_MESHES)
     for spec, r in runs.items():
         if not all(np.isfinite(r["losses"])) or not r["losses"][-1] < r["losses"][0]:
@@ -3327,12 +3406,12 @@ def _dist_full_width(device) -> dict:
         not torch.equal(a["state"][k][n], b["state"][k][n])
         for k in ("params", "m", "v") for n in a["state"][k])
     flops, bound_ms = _train_flop_bound_ms(cfg, DIST_FULL["batch"], DIST_FULL["seq"])
-    out = {"held": held, "flops": flops, "bound_ms": bound_ms}
+    out = {"held": held, "flops": flops, "bound_ms": bound_ms, "one": one,
+           "profile": a["profile"]}
     for spec, r in runs.items():
         warm = r["step_s"][1:]
         med = float(np.median(warm)) * 1e3
-        out[spec] = {k: r[k] for k in ("losses", "step_s", "gather_s", "reduce_s", "peak_gb",
-                                       "replicas")}
+        out[spec] = {k: r[k] for k in ("losses", "step_s", "peak_gb", "replicas")}
         out[spec].update(step_ms_median=med,
                          tokens_per_s=DIST_FULL["batch"] * DIST_FULL["seq"] / (med / 1e3),
                          bound_share=bound_ms / med)
@@ -3340,16 +3419,92 @@ def _dist_full_width(device) -> dict:
     return out
 
 
+def _row_steps(model, net, batch: dict, n_rows: int) -> dict:
+    """The shared int8 step of each leaf in a compressed reduce over
+    ``n_rows`` data rows: the largest |gradient| of any row's slice of
+    ``batch`` (float32, no sharding context, as each row of
+    ``make_compressed_dp_step`` computes it), over 127."""
+    b = next(iter(batch.values())).shape[0]
+    top: dict = {}
+    for r in range(n_rows):
+        net.zero_grad(set_to_none=True)
+        mb = {k: v.reshape(n_rows, b // n_rows, *v.shape[1:])[r] for k, v in batch.items()}
+        model.train_loss(net, mb).backward()
+        for n, p in net.named_parameters():
+            g = 0.0 if p.grad is None else float(p.grad.abs().max())
+            top[n] = max(top.get(n, 0.0), g)
+    net.zero_grad(set_to_none=True)
+    return {n: t / 127.0 for n, t in top.items()}
+
+
+def _reduce_error(got_m: dict, got_norm: float, want_m: dict, want_norm: float, steps: dict,
+                  opt_cfg, dev) -> float:
+    """A compressed step's reduced gradient against the exact step's, as a
+    share of its bound (at most 1 passes), leaf by leaf on ``dev``. Both are
+    read back from the first moments after one AdamW step from zero, m =
+    (1 - b1) clip g, clip = min(1, clip_norm / grad_norm) from each step's
+    own norm. Each data entry quantizes at its leaf's shared step s and
+    errs by less than s, so their mean errs by less than s: each element
+    is held within s (1 + 1e-3) + 1e-5 of the leaf's largest exact value,
+    and the norms within the norm of those bounds."""
+    clip_g = min(1.0, opt_cfg.clip_norm / max(got_norm, 1e-9))
+    clip_w = min(1.0, opt_cfg.clip_norm / max(want_norm, 1e-9))
+    worst = bound_sq = 0.0
+    for n, m in want_m.items():
+        w = m.to(dev).double() / ((1 - opt_cfg.b1) * clip_w)
+        g = got_m[n].to(dev).double() / ((1 - opt_cfg.b1) * clip_g)
+        tol = steps[n] * (1 + 1e-3) + 1e-5 * float(w.abs().max())
+        worst = max(worst, float((g - w).abs().max()) / max(tol, 1e-30))
+        bound_sq += w.numel() * tol ** 2
+        del w, g
+    return max(worst, abs(got_norm - want_norm) / max(bound_sq ** 0.5, 1e-30))
+
+
+def _biased_psum(mesh, dp_axes):
+    """The reference's compressed reduce (src/repro/training/compression.py:
+    54-59), a control the reduce check must fail: each entry quantizes at
+    its own scale and the int32 sum is dequantized at the max."""
+    from repro_torch.training.compression import _quantize, _scale
+
+    def fn(grads, generator):
+        out = [{} for _ in grads]
+        for name, g0 in grads[0].items():
+            rnd = torch.rand(g0.shape, generator=generator, device=generator.device)
+            scales = [_scale(g[name]) for g in grads]
+            q32 = sum(_quantize(g[name], sc, rnd.to(g[name].device)).to(torch.int32)
+                      .to(g0.device) for g, sc in zip(grads, scales))
+            mean = q32.float() * torch.stack([sc.to(g0.device) for sc in scales]).max() \
+                / len(grads)
+            for o, g in zip(out, grads):
+                o[name] = mean.to(g[name].device)
+        return out
+
+    return fn
+
+
+def _unscaled_psum(mesh, dp_axes):
+    """The port's reduce without the division by the entries (the sum, not
+    the mean): a control the reduce check must fail."""
+    from repro_torch.training.compression import compressed_psum
+
+    reduce = compressed_psum(mesh, dp_axes)
+    return lambda grads, gen: [{n: t * len(grads) for n, t in o.items()}
+                               for o in reduce(grads, gen)]
+
+
 def _dist_compressed(device) -> dict:
     """One compressed step on 2x1 at full width against the exact plan step
     with cast_bf16=False on the same mesh, weights and batch (both route
-    two groups)."""
+    two groups): the reference test's bounds, then the reduced gradient
+    within each leaf's int8 step of the exact one; the same check must
+    fail with the reference's biased reduce and with the undivided sum."""
     from repro_torch.configs import ARCHS
     from repro_torch.distributed.elastic import gather, place, redistribute
     from repro_torch.distributed.sharding import make_plan
     from repro_torch.launch.train import synthetic_lm_batches
     from repro_torch.models.zoo import build
     from repro_torch.training import OptConfig, make_train_step
+    from repro_torch.training import train as train_mod
     from repro_torch.training.train import make_compressed_dp_step, sharded_adamw_init
 
     cfg = ARCHS[DIST_ARCH]
@@ -3363,34 +3518,62 @@ def _dist_compressed(device) -> dict:
     params = redistribute(start, plan)
     step, _ = make_train_step(model, opt_cfg, plan, cast_bf16=False)
     params, opt, exact_met = step(params, sharded_adamw_init(params, plan), batch)
-    exact = gather(params)  # on the host
+    exact, exact_m = gather(params), gather(opt["m"])  # on the host
+    exact_norm = float(exact_met["grad_norm"])
     del params, opt
     torch.cuda.empty_cache()
+    steps = _row_steps(model, start, batch, 2)
     names = [n for n, _ in start.named_parameters()]
-    rep = {n: place(p.detach(), mesh, ()) for n, p in start.named_parameters()}
-    opt = {"m": {n: s.map(torch.zeros_like) for n, s in rep.items()},
-           "v": {n: s.map(torch.zeros_like) for n, s in rep.items()},
-           "step": place(torch.zeros((), dtype=torch.int32), mesh, ())}
-    comp = make_compressed_dp_step(model, opt_cfg, mesh, ("data",))
-    _sync(device)
-    t0 = time.perf_counter()
-    rep, opt, met = comp(rep, opt, batch, torch.Generator(device).manual_seed(42))
-    loss = float(met["loss"])
-    step_s = time.perf_counter() - t0
-    d_loss = abs(loss - float(exact_met["loss"]))
-    d_param = max(float((rep[n].shards[0, 0] - exact[n].to(device)).abs().max()) for n in names)
-    moved = max(float((rep[n].shards[0, 0] - p.detach()).abs().max())
-                for n, p in start.named_parameters())
-    if d_loss >= DIST_COMPRESSED["loss"] or d_param >= DIST_COMPRESSED["param"] \
-            or moved <= DIST_COMPRESSED["moved"]:
-        fail(f"phase dist: compressed step: loss diff {d_loss:.3g}, param diff {d_param:.3g}, "
-             f"moved {moved:.3g} (bounds {DIST_COMPRESSED})")
-    if any(not torch.equal(s.shards[0, 0], s.shards[1, 0]) for s in rep.values()):
-        fail("phase dist: compressed step: the two replicas differ")
-    del rep, opt, exact, start
+    out = {}
+    for label, control in (("port", None), ("biased", _biased_psum),
+                           ("unscaled", _unscaled_psum)):
+        rep = {n: place(p.detach(), mesh, ()) for n, p in start.named_parameters()}
+        opt = {"m": {n: s.map(torch.zeros_like) for n, s in rep.items()},
+               "v": {n: s.map(torch.zeros_like) for n, s in rep.items()},
+               "step": place(torch.zeros((), dtype=torch.int32), mesh, ())}
+        real = train_mod.compressed_psum
+        if control is not None:
+            train_mod.compressed_psum = control
+        try:
+            comp = make_compressed_dp_step(model, opt_cfg, mesh, ("data",))
+        finally:
+            train_mod.compressed_psum = real
+        _sync(device)
+        t0 = time.perf_counter()
+        rep, opt, met = comp(rep, opt, batch, torch.Generator(device).manual_seed(42))
+        loss = float(met["loss"])
+        step_s = time.perf_counter() - t0
+        err = _reduce_error({n: s.shards[0, 0] for n, s in opt["m"].items()},
+                            float(met["grad_norm"]), exact_m, exact_norm, steps, opt_cfg, device)
+        if control is not None:
+            if not err > 1.0:
+                fail(f"phase dist: compressed step: the {label} control passed the reduce "
+                     f"check ({err:.3g} of its bound)")
+            out[f"{label}_reduce_err"] = err
+            del rep, opt
+            torch.cuda.empty_cache()
+            continue
+        if err > 1.0:
+            fail(f"phase dist: compressed step: the reduced gradient is {err:.3g} of its "
+                 "bound from the exact step's")
+        d_loss = abs(loss - float(exact_met["loss"]))
+        d_param = max(float((rep[n].shards[0, 0] - exact[n].to(device)).abs().max())
+                      for n in names)
+        moved = max(float((rep[n].shards[0, 0] - p.detach()).abs().max())
+                    for n, p in start.named_parameters())
+        if d_loss >= DIST_COMPRESSED["loss"] or d_param >= DIST_COMPRESSED["param"] \
+                or moved <= DIST_COMPRESSED["moved"]:
+            fail(f"phase dist: compressed step: loss diff {d_loss:.3g}, param diff "
+                 f"{d_param:.3g}, moved {moved:.3g} (bounds {DIST_COMPRESSED})")
+        if any(not torch.equal(s.shards[0, 0], s.shards[1, 0]) for s in rep.values()):
+            fail("phase dist: compressed step: the two replicas differ")
+        out.update(loss_err=d_loss, param_err=d_param, moved=moved, step_s=step_s, loss=loss,
+                   reduce_err=err)
+        del rep, opt
+        torch.cuda.empty_cache()
+    del exact, exact_m, start
     torch.cuda.empty_cache()
-    return {"loss_err": d_loss, "param_err": d_param, "moved": moved, "step_s": step_s,
-            "loss": loss}
+    return out
 
 
 def _dist_decode_attention(device) -> dict:
@@ -3530,9 +3713,15 @@ def phase_dist(device) -> dict:
               f"median(after step 0)={r['step_ms_median']:.1f} "
               f"tokens_per_s={r['tokens_per_s']:.0f} flop_bound_ms={full['bound_ms']:.2f} "
               f"share={r['bound_share']:.4f} peak_gb={r['peak_gb']:.2f} "
-              f"gather_ms={[round(s * 1e3, 1) for s in r['gather_s']]} "
-              f"reduce_ms={[round(s * 1e3, 1) for s in r['reduce_s']]} "
               f"replicated slices identical {r['replicas']}", flush=True)
+    pr, one = full["profile"], full["one"]
+    print(f"phase dist: full width 1x1 == single-device step bit for bit (loss {one['loss']}, "
+          f"grad_norm {one['grad_norm']}, {one['leaves_equal']} leaves); one more "
+          f"{DIST_MESHES[0]} step under torch.profiler: wall_ms={pr['wall_ms']:.1f} "
+          f"device_busy_ms={pr['busy_ms']:.1f} idle_share={pr['idle_share']:.4f} "
+          f"device_ops={pr['launches']} gather_device_ms={pr['gather_ms']:.1f} "
+          f"({pr['gathers']} ranges) reduce_device_ms={pr['reduce_ms']:.1f} "
+          f"({pr['reduces']} ranges)", flush=True)
     h = full["held"]
     print(f"phase dist: full width {DIST_MESHES[0]} == {DIST_MESHES[1]} under the rule after "
           f"{DIST_FULL['steps']} steps (moment entries at one bf16 ulp {h['flips']}, param "
@@ -3543,6 +3732,9 @@ def phase_dist(device) -> dict:
     print(f"phase dist: compressed step on 2x1 (int8, shared scale) against the exact plan "
           f"step (cast_bf16=False): loss_err={comp['loss_err']:.3g} (< 1e-4) "
           f"param_err={comp['param_err']:.3g} (< 5e-3) moved={comp['moved']:.3g} (> 1e-6) "
+          f"reduced gradient {comp['reduce_err']:.3g} of its int8 bound (<= 1; controls: "
+          f"the reference's biased reduce {comp['biased_reduce_err']:.3g}, the undivided sum "
+          f"{comp['unscaled_reduce_err']:.3g}, both > 1) "
           f"step_ms={comp['step_s'] * 1e3:.1f}", flush=True)
     attn = _dist_decode_attention(device)
     a = DIST_ATTN

@@ -170,7 +170,7 @@ class Plan:
         return [{k: self.cache_spec(k, v.shape) for k, v in layer.items()} for layer in cache]
 
 
-def make_plan(mesh, multi_pod: bool | None = None, serve: bool = False) -> Plan:
+def make_plan(mesh, serve: bool = False) -> Plan:
     """The plan over ``mesh``'s axes ``((pod,) data, model)``: the data axes
     are every axis but ``model``."""
     names = mesh.axis_names

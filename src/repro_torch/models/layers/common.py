@@ -4,7 +4,7 @@ initializers and dtype casts.
 ``ShardCtx`` names the mesh axes that the sharding plan
 (``distributed.sharding``) reads: its only numerical effect is the number of
 an MoE's routing groups (``moe._n_groups``), one per entry of the data axes,
-as in the reference. ``shard`` returns its input: a torch tensor is one
+as in the reference. The port has no ``shard``: a torch tensor is one
 entry's, and nothing constrains a layout inside it (the plan stores the
 slices, and the train step splits the batch over the data rows).
 
@@ -22,8 +22,8 @@ import dataclasses
 import torch
 from torch import nn
 
-__all__ = ["F32_LEAVES", "ShardCtx", "shard", "rms_norm", "dense_init", "zeros_init", "param",
-           "NormScales", "cast", "cast_params"]
+__all__ = ["F32_LEAVES", "ShardCtx", "rms_norm", "dense_init", "param", "NormScales", "cast",
+           "cast_params"]
 
 # leaves read in float32 whatever the activation dtype
 F32_LEAVES = frozenset(
@@ -36,12 +36,11 @@ F32_LEAVES = frozenset(
 class ShardCtx:
     """Logical axes over a ``launch.mesh.Mesh``: ``dp`` the data-parallel
     axes (``("data",)`` or ``("pod", "data")``), ``tp`` the tensor axis
-    (``"model"``) or None; ``sp`` is carried for the reference's API."""
+    (``"model"``) or None."""
 
     mesh: object = None
     dp: tuple[str, ...] = ()
     tp: str | None = None
-    sp: bool = True
 
     def axis_size(self, logical: str | tuple[str, ...] | None) -> int:
         if self.mesh is None or logical is None:
@@ -62,11 +61,6 @@ class ShardCtx:
         raise ValueError(f"unknown logical axis {name!r}")
 
 
-def shard(ctx: ShardCtx | None, x: torch.Tensor, names: tuple) -> torch.Tensor:
-    """``x`` unchanged: a torch tensor is one entry's (see the module note)."""
-    return x
-
-
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMS norm in float32 with a ``1 + scale`` gain; returns x's dtype."""
     xf = x.float()
@@ -80,10 +74,6 @@ def dense_init(t: torch.Tensor, generator: torch.Generator, in_axis: int = 0) ->
     std = t.shape[in_axis] ** -0.5
     with torch.no_grad():
         return nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
-
-
-def zeros_init(shape, dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
-    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 def param(*shape: int, device=None) -> nn.Parameter:

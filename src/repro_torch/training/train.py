@@ -45,11 +45,11 @@ shared scale.
 from __future__ import annotations
 
 import contextlib
-import time
 
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ..convert import reference_rank2_names
 from ..distributed.elastic import Sharded, place
@@ -87,20 +87,20 @@ def _reading(net: nn.Module, tensors: dict):
 
 
 def make_train_step(model: Model, opt_cfg: OptConfig, plan=None, grad_accum: int = 1,
-                    cast_bf16: bool = True, timed: bool = False):
+                    cast_bf16: bool = True):
     """``grad_accum > 1`` splits the leading batch axis into micro-batches
     and sums their float32 gradients (and losses), then divides by
     ``grad_accum``: the reference's scan over micro-batches. With ``plan``:
-    ``(train_step, shardings_for)`` (the module note); ``timed`` then
-    synchronises the devices around the gathers and the reduce and adds
-    their host-clock seconds to the metrics (``gather_s``, ``reduce_s``)."""
+    ``(train_step, shardings_for)`` (the module note); its gathers and its
+    reduce run under the profiler ranges ``plan_step.gather`` and
+    ``plan_step.reduce``."""
     rank2 = reference_rank2_names(model.cfg)
     if plan is not None:
         def shardings_for(abstract_net):
             pspec = plan.param_shardings(abstract_net)
             return pspec, {"m": pspec, "v": pspec, "step": plan.replicated()}
 
-        return (_plan_step(model, opt_cfg, plan, grad_accum, cast_bf16, rank2, timed),
+        return (_plan_step(model, opt_cfg, plan, grad_accum, cast_bf16, rank2),
                 shardings_for)
 
     def loss_and_grads(net: nn.Module, params: dict, batch: dict) -> torch.Tensor:
@@ -167,12 +167,6 @@ def sharded_adamw_init(params: dict, plan) -> dict:
             "step": place(torch.zeros((), dtype=torch.int32), plan.mesh, plan.replicated())}
 
 
-def _sync(devices) -> None:
-    for d in {torch.device(d) for d in devices}:
-        if d.type == "cuda":
-            torch.cuda.synchronize(d)
-
-
 def _micro(batch: dict, i: int, n: int) -> dict:
     return {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i] for k, v in batch.items()}
 
@@ -197,7 +191,7 @@ TABLE, HEAD = "embed.embedding", "embed.lm_head"
 
 
 def _plan_step(model: Model, opt_cfg: OptConfig, plan, grad_accum: int, cast_bf16: bool,
-               rank2, timed: bool):
+               rank2):
     net = model.abstract_params()  # the layers; every leaf is read through _reading
     tied = net.embed.lm_head is None
     mesh = plan.mesh
@@ -205,7 +199,7 @@ def _plan_step(model: Model, opt_cfg: OptConfig, plan, grad_accum: int, cast_bf1
     row_dev = [mesh.devices[r[0]] for r in rows]
     dev0 = row_dev[0]
 
-    def row_grads(params, cast, partial, mb, dev, weight, ctx, clock):
+    def row_grads(params, cast, partial, mb, dev, weight, ctx):
         """(weighted loss on dev0, float32 gradients by name) of one row's
         micro-batch ``mb`` on ``dev``.
 
@@ -218,20 +212,20 @@ def _plan_step(model: Model, opt_cfg: OptConfig, plan, grad_accum: int, cast_bf1
         device rounds the gather's and the head's gradients apart), and its
         gather reads the bfloat16 values, whose per-token rounding happens
         within a row."""
-        t0 = time.perf_counter()
-        leaves = {}
-        for n, s in params.items():
-            t = s.gather(dev)
-            leaves[n] = (t.to(torch.bfloat16).float() if partial and n in cast else t
-                         ).requires_grad_()
-        if not partial:
-            reads = {n: t.to(torch.bfloat16) if n in cast else t for n, t in leaves.items()}
-        else:
-            reads = dict(leaves)
-            if tied and TABLE in cast:
-                leaves[HEAD] = leaves[TABLE].detach().clone().requires_grad_()
-                reads.update({HEAD: leaves[HEAD].T, TABLE: leaves[TABLE].to(torch.bfloat16)})
-        clock.tick("gather_s", t0)
+        with record_function("plan_step.gather"):
+            leaves = {}
+            for n, s in params.items():
+                t = s.gather(dev)
+                leaves[n] = (t.to(torch.bfloat16).float() if partial and n in cast else t
+                             ).requires_grad_()
+            if not partial:
+                reads = {n: t.to(torch.bfloat16) if n in cast else t for n, t in leaves.items()}
+            else:
+                reads = dict(leaves)
+                if tied and TABLE in cast:
+                    leaves[HEAD] = leaves[TABLE].detach().clone().requires_grad_()
+                    reads.update({HEAD: leaves[HEAD].T,
+                                  TABLE: leaves[TABLE].to(torch.bfloat16)})
         mb = {k: v.to(dev) for k, v in mb.items()}
         with _reading(net, reads):
             loss = model.train_loss(net, mb, ctx=ctx)
@@ -241,7 +235,6 @@ def _plan_step(model: Model, opt_cfg: OptConfig, plan, grad_accum: int, cast_bf1
             n: torch.zeros_like(t) if t.grad is None else t.grad for n, t in leaves.items()}
 
     def train_step(params: dict, opt: dict, batch: dict):
-        clock = _Clock(timed, mesh)
         B = next(iter(batch.values())).shape[0] // grad_accum
         split = B % len(rows) == 0
         partial = split and len(rows) > 1
@@ -260,16 +253,15 @@ def _plan_step(model: Model, opt_cfg: OptConfig, plan, grad_accum: int, cast_bf1
                 parts = [(mb, 0, None, plan.ctx())]
             micro_grads = None
             for part, r, weight, ctx in parts:
-                l, g = row_grads(params, cast, partial, part, row_dev[r], weight, ctx, clock)
+                l, g = row_grads(params, cast, partial, part, row_dev[r], weight, ctx)
                 loss = l if loss is None else loss + l
-                t0 = time.perf_counter()
-                if micro_grads is None:
-                    micro_grads = {n: t.to(dev0) for n, t in g.items()}
-                else:
-                    for n, t in g.items():
-                        micro_grads[n] += t.to(dev0)
+                with record_function("plan_step.reduce"):
+                    if micro_grads is None:
+                        micro_grads = {n: t.to(dev0) for n, t in g.items()}
+                    else:
+                        for n, t in g.items():
+                            micro_grads[n] += t.to(dev0)
                 del g
-                clock.tick("reduce_s", t0)
             if partial:
                 for n in cast:
                     micro_grads[n] = micro_grads[n].to(torch.bfloat16).float()
@@ -286,34 +278,19 @@ def _plan_step(model: Model, opt_cfg: OptConfig, plan, grad_accum: int, cast_bf1
             loss = loss / grad_accum
             for g in grads.values():
                 g.div_(grad_accum)
-        t0 = time.perf_counter()
-        # the clip norm counts each leaf once, in one order whatever the
-        # mesh's split, so the `model` axis changes no number
-        gnorm = global_norm(grads)
-        # the reduce-scatter: each entry keeps its slice of the summed gradients
-        mine = {c: {n: grads[n][params[n].slices(c)].to(mesh.devices[c], copy=True)
-                    for n in params} for c in opt["step"].coords()}
+        with record_function("plan_step.reduce"):
+            # the clip norm counts each leaf once, in one order whatever the
+            # mesh's split, so the `model` axis changes no number
+            gnorm = global_norm(grads)
+            # the reduce-scatter: each entry keeps its slice of the summed gradients
+            mine = {c: {n: grads[n][params[n].slices(c)].to(mesh.devices[c], copy=True)
+                        for n in params} for c in opt["step"].coords()}
         del grads
-        clock.tick("reduce_s", t0)
         met = _update_entries(params, opt, lambda c: mine[c],
                               lambda c: gnorm.to(mesh.devices[c]), opt_cfg, rank2)
-        return params, opt, dict(met, loss=loss, **clock.seconds)
+        return params, opt, dict(met, loss=loss)
 
     return train_step
-
-
-class _Clock:
-    """Host-clock seconds of the gathers and the reduce, each ending in a
-    device sync; off (no sync, no keys) unless ``timed``."""
-
-    def __init__(self, timed: bool, mesh):
-        self.timed, self.devices = timed, list(mesh.devices.flat)
-        self.seconds = {"gather_s": 0.0, "reduce_s": 0.0} if timed else {}
-
-    def tick(self, key: str, t0: float) -> None:
-        if self.timed:
-            _sync(self.devices)
-            self.seconds[key] += time.perf_counter() - t0
 
 
 def make_compressed_dp_step(model: Model, opt_cfg: OptConfig, mesh, dp_axes):

@@ -18,18 +18,32 @@ compressed data-parallel step (``make_compressed_dp_step``) on the CPU.
   warmup_steps=1, total_steps=10)``: the reference test's weights, batch
   and configuration), the reference test's bounds: the loss
   within 1e-4, the parameters within 5e-3, and at least one parameter moved
-  by more than 1e-6.
+  by more than 1e-6. Those bounds cannot fail: Adam's first step moves
+  every parameter by about lr whatever the gradient, and the loss is taken
+  before the update.
+* So the reduce itself is held: on the same mesh, weights and batch, the
+  compressed step's reduced gradient, read back from its first moments and
+  its gradient norm, against the exact plan step's without the bf16 cast
+  (the same eight rows, summed in float32). Each element lies within its
+  leaf's shared int8 step (1 + 1e-3), plus 1e-5 of the leaf's largest,
+  and the norms within the norm of those bounds
+  (``test_torch_dist_helpers.reduce_error``). Two controls must fail the
+  same check: the reference's biased reduce, and the sum without the
+  division by the number of entries.
 """
 
 import numpy as np
+import pytest
 import torch
 
-from repro_torch.distributed.elastic import gather, place
+from repro_torch.distributed.elastic import gather, place, redistribute
+from repro_torch.distributed.sharding import make_plan
 from repro_torch.launch.mesh import mesh_from_spec
 from repro_torch.training import OptConfig, adamw_init, make_train_step
+from repro_torch.training import train as train_mod
 from repro_torch.training.compression import compressed_psum, dequantize_int8, quantize_int8
-from repro_torch.training.train import make_compressed_dp_step
-from test_torch_dist_helpers import run_reference
+from repro_torch.training.train import make_compressed_dp_step, sharded_adamw_init
+from test_torch_dist_helpers import CONTROLS, reduce_error, row_steps, run_reference
 from test_torch_lm_helpers import pair
 
 DRAWS = 256
@@ -103,20 +117,30 @@ def test_unequal_shard_scales_port_unbiased_reference_biased(tmp_path):
           f"{np.abs(port - true).max():.4f}, shared step {step:.4f}")
 
 
-def test_compressed_step_against_exact_step():
-    _, _, tm, net = pair("glm4-9b")
+OCFG = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+
+
+def _step_batch(cfg):
     rng = np.random.default_rng(0)  # the reference test's weights and batch
-    tb = {k: torch.as_tensor(rng.integers(0, tm.cfg.vocab, (8, 16))) for k in ("tokens", "labels")}
-    ocfg = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
-    start = {n: p.detach().clone() for n, p in net.named_parameters()}
-    mesh = mesh_from_spec("8x1", devices=["cpu"] * 8)
+    return {k: torch.as_tensor(rng.integers(0, cfg.vocab, (8, 16))) for k in ("tokens", "labels")}
+
+
+def _compressed_step(tm, start: dict, tb: dict, mesh):
     params = {n: place(t, mesh, ()) for n, t in start.items()}
     opt = {"m": {n: place(torch.zeros_like(t), mesh, ()) for n, t in start.items()},
            "v": {n: place(torch.zeros_like(t), mesh, ()) for n, t in start.items()},
            "step": place(torch.zeros((), dtype=torch.int32), mesh, ())}
-    step = make_compressed_dp_step(tm, ocfg, mesh, ("data",))
-    params, opt, m2 = step(params, opt, tb, torch.Generator().manual_seed(42))
-    _, m1 = make_train_step(tm, ocfg)(net, adamw_init(dict(net.named_parameters())), tb)
+    step = make_compressed_dp_step(tm, OCFG, mesh, ("data",))
+    return step(params, opt, tb, torch.Generator().manual_seed(42))
+
+
+def test_compressed_step_against_exact_step():
+    _, _, tm, net = pair("glm4-9b")
+    tb = _step_batch(tm.cfg)
+    start = {n: p.detach().clone() for n, p in net.named_parameters()}
+    mesh = mesh_from_spec("8x1", devices=["cpu"] * 8)
+    params, opt, m2 = _compressed_step(tm, start, tb, mesh)
+    _, m1 = make_train_step(tm, OCFG)(net, adamw_init(dict(net.named_parameters())), tb)
     assert abs(float(m1["loss"]) - float(m2["loss"])) < 1e-4
     got = gather(params)
     diffs = [float((got[n] - p.detach()).abs().max()) for n, p in net.named_parameters()]
@@ -126,3 +150,26 @@ def test_compressed_step_against_exact_step():
     for n, s in params.items():
         assert all(torch.equal(s.shards[c], s.shards[0, 0]) for c in s.coords()), n
     assert int(opt["step"].shards[7, 0]) == 1
+
+
+@pytest.mark.parametrize("reduce", sorted(CONTROLS))
+def test_compressed_step_reduces_to_the_exact_mean(monkeypatch, reduce):
+    _, _, tm, net = pair("glm4-9b")
+    tb = _step_batch(tm.cfg)
+    start = {n: p.detach().clone() for n, p in net.named_parameters()}
+    mesh = mesh_from_spec("8x1", devices=["cpu"] * 8)
+    plan = make_plan(mesh)
+    params = redistribute(net, plan)
+    exact, _ = make_train_step(tm, OCFG, plan, cast_bf16=False)
+    _, e_opt, e_met = exact(params, sharded_adamw_init(params, plan), tb)
+    if CONTROLS[reduce] is not None:
+        monkeypatch.setattr(train_mod, "compressed_psum", CONTROLS[reduce])
+    _, c_opt, c_met = _compressed_step(tm, start, tb, mesh)
+    err = reduce_error({n: s.shards[0, 0] for n, s in c_opt["m"].items()},
+                       float(c_met["grad_norm"]), gather(e_opt["m"]),
+                       float(e_met["grad_norm"]), row_steps(tm, net, tb, 8), OCFG)
+    if reduce == "port":
+        assert err <= 1.0, err
+    else:  # the control is caught
+        assert err > 1.0, err
+    print(f"{reduce}: reduce error {err:.3g} of its bound")

@@ -128,3 +128,84 @@ def cpu_mesh(spec: str):
 
     d, m = (int(p) for p in spec.split("x"))
     return mesh_from_spec(spec, devices=["cpu"] * (d * m))
+
+
+def row_steps(model, net, batch: dict, n_rows: int) -> dict:
+    """The shared int8 step of each leaf in a compressed reduce over
+    ``n_rows`` data rows: the largest |gradient| of any row's slice of
+    ``batch`` (float32, no sharding context, as each row of
+    ``make_compressed_dp_step`` computes it), over 127."""
+    b = next(iter(batch.values())).shape[0]
+    top: dict = {}
+    for r in range(n_rows):
+        net.zero_grad(set_to_none=True)
+        mb = {k: v.reshape(n_rows, b // n_rows, *v.shape[1:])[r] for k, v in batch.items()}
+        model.train_loss(net, mb).backward()
+        for n, p in net.named_parameters():
+            g = 0.0 if p.grad is None else float(p.grad.abs().max())
+            top[n] = max(top.get(n, 0.0), g)
+    net.zero_grad(set_to_none=True)
+    return {n: t / 127.0 for n, t in top.items()}
+
+
+def reduce_error(got_m: dict, got_norm: float, want_m: dict, want_norm: float, steps: dict,
+                 opt_cfg) -> float:
+    """How far a compressed step's reduced gradient lies from the exact
+    step's, as a share of its bound: at most 1 passes. Both gradients are
+    read back from the first moments after one AdamW step from zero, m =
+    (1 - b1) clip g with clip = min(1, clip_norm / grad_norm) from each
+    step's own norm. Each data entry quantizes at its leaf's shared step s
+    (``row_steps``) and errs by less than s, so their mean errs by less than
+    s: every element is held within s (1 + 1e-3) + 1e-5 of the leaf's
+    largest exact value, and the two norms within the norm of those
+    bounds."""
+    def grads(m, norm):
+        clip = min(1.0, opt_cfg.clip_norm / max(norm, 1e-9))
+        return {n: t.double() / ((1 - opt_cfg.b1) * clip) for n, t in m.items()}
+
+    got, want = grads(got_m, got_norm), grads(want_m, want_norm)
+    worst = bound_sq = 0.0
+    for n, w in want.items():
+        tol = steps[n] * (1 + 1e-3) + 1e-5 * float(w.abs().max())
+        worst = max(worst, float((got[n].to(w.device) - w).abs().max()) / max(tol, 1e-30))
+        bound_sq += w.numel() * tol ** 2
+    return max(worst, abs(got_norm - want_norm) / max(bound_sq ** 0.5, 1e-30))
+
+
+def biased_psum(mesh, dp_axes):
+    """The reference's compressed reduce, a control the compressed-step
+    checks must fail (``src/repro/training/compression.py:54-59``): each
+    entry quantizes at its own scale, and the int32 sum is dequantized at
+    the max of the scales."""
+    from repro_torch.training.compression import _quantize, _scale
+
+    def fn(grads, generator):
+        out = [{} for _ in grads]
+        for name, g0 in grads[0].items():
+            rnd = torch.rand(g0.shape, generator=generator, device=generator.device)
+            scales = [_scale(g[name]) for g in grads]
+            q32 = sum(_quantize(g[name], s, rnd.to(g[name].device)).to(torch.int32).to(g0.device)
+                      for g, s in zip(grads, scales))
+            top = torch.stack([s.to(g0.device) for s in scales]).max()
+            mean = q32.float() * top / len(grads)
+            for o, g in zip(out, grads):
+                o[name] = mean.to(g[name].device)
+        return out
+
+    return fn
+
+
+def unscaled_psum(mesh, dp_axes):
+    """The port's compressed reduce without the division by the number of
+    entries (the sum, not the mean): a control the checks must fail."""
+    from repro_torch.training.compression import compressed_psum
+
+    reduce = compressed_psum(mesh, dp_axes)
+
+    def fn(grads, generator):
+        return [{n: t * len(grads) for n, t in o.items()} for o in reduce(grads, generator)]
+
+    return fn
+
+
+CONTROLS = {"port": None, "biased": biased_psum, "unscaled": unscaled_psum}

@@ -28,6 +28,15 @@ plan)``) on meshes of CPU entries.
   to 3.2e-6).
 * ``grad_accum=2`` with a plan (reduced glm4-9b on 2x2) against the
   single-device step with ``grad_accum=2``, under the same rule.
+* granite-moe-1b-a400m at full width (d_model 1,024, 32 experts of 512,
+  top 8, the 49,155-word tied table that falls back to replication on the
+  `model` axis), cut to 1 layer with float32 activations, B = 2, S = 16:
+  the port's plan step on 2x2 CPU entries against the reference's sharded
+  step on an ``Auto`` 2x2 mesh of 4 forced host devices, under the same
+  rule. The card runs this model at full width and depth on 2x2 and 2x1,
+  which share their data rows and so their arithmetic; this holds the
+  two-row path at full width against code that is not the port's. Both
+  steps run in one subprocess, so only the comparison's numbers come back.
 * A 1x1 mesh equals the single-device step bit for bit, for the ten
   reduced architectures; 2x1, 2x2 and 2x4 (the same data rows) give the
   same bits; after a 4x2 step every replicated slice of the parameters and
@@ -78,6 +87,61 @@ for name, b, s in CASES:
 """
 
 
+FULL = dict(name="granite-moe-1b-a400m", layers=1, b=2, s=16, mesh=(2, 2))
+
+_FULL = r"""
+import dataclasses
+import torch
+from repro.configs import ARCHS as REF_ARCHS
+from repro.distributed.sharding import make_plan as ref_make_plan
+from repro.models.zoo import build as ref_build
+from repro.training.optimizer import OptConfig as RefOpt, adamw_init
+from repro.training.train import make_train_step as ref_make_train_step
+from repro_torch.configs import ARCHS
+from repro_torch.convert import lm_params_from_numpy
+from repro_torch.distributed.elastic import redistribute
+from repro_torch.distributed.sharding import make_plan
+from repro_torch.models.zoo import build
+from repro_torch.training import OptConfig, make_train_step
+from repro_torch.training.train import sharded_adamw_init
+from test_torch_dist_helpers import assert_step_matches, cpu_mesh
+from test_torch_train_helpers import train_batches, to_port
+
+cut = dict(n_layers=FULL["layers"], dtype="float32")
+rcfg = dataclasses.replace(REF_ARCHS[FULL["name"]], **cut)
+tcfg = dataclasses.replace(ARCHS[FULL["name"]], **cut)
+rm, tm = ref_build(rcfg), build(tcfg)
+params = rm.init(jax.random.PRNGKey(0))
+net = tm.load(lm_params_from_numpy(jax.tree.map(np.asarray, params), tcfg))
+rb, tb = train_batches(rcfg, 5, FULL["b"], FULL["s"])
+
+mesh = auto_mesh(FULL["mesh"], ("data", "model"))
+plan = ref_make_plan(mesh)
+step_fn, shardings_for = ref_make_train_step(rm, RefOpt(**OPT), plan)
+pspec, ospec = shardings_for(jax.eval_shape(lambda: rm.init(jax.random.PRNGKey(0))))
+bspec = plan.batch_shardings(rb)
+with jax.set_mesh(mesh):
+    args = jax.device_put((params, adamw_init(params), rb), (pspec, ospec, bspec))
+    step = jax.jit(step_fn, in_shardings=(pspec, ospec, bspec),
+                   out_shardings=(pspec, ospec, None)).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})
+    p, o, met = step(*args)
+want = {"params": to_port(p, tcfg), "m": to_port(o["m"], tcfg), "v": to_port(o["v"], tcfg),
+        "loss": float(met["loss"]), "grad_norm": float(met["grad_norm"])}
+del p, o, args, params
+
+tplan = make_plan(cpu_mesh("x".join(map(str, FULL["mesh"]))))
+tparams = redistribute(net, tplan)
+del net
+tstep, _ = make_train_step(tm, OptConfig(**OPT), tplan)
+tparams, topt, tmet = tstep(tparams, sharded_adamw_init(tparams, tplan), tb)
+assert_step_matches(tparams, topt, tmet, want, float(met["lr"]))
+OUT.update(loss=float(tmet["loss"]), ref_loss=want["loss"], grad_norm=float(tmet["grad_norm"]),
+           ref_grad_norm=want["grad_norm"], fallbacks=sorted(plan.fallbacks),
+           port_fallbacks=sorted(tplan.fallbacks), n_params=sum(t.numel() for t in want["params"].values()))
+"""
+
+
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     body = f"CASES = {CASES!r}\nOPT = {OPT!r}\n" + _REF
@@ -121,6 +185,14 @@ def test_replicated_batch_routes_in_dp_groups(reference):
     _, one = make_train_step(tm, OptConfig(**OPT))(net, adamw_init(dict(net.named_parameters())),
                                                    tb)
     assert abs(float(one["loss"]) - float(met["loss"])) > 1e-4
+
+
+def test_full_width_step_matches_reference(tmp_path):
+    body = f"FULL = {FULL!r}\nOPT = {OPT!r}\n" + _FULL
+    out = run_reference(body, tmp_path, n_devices=4)  # the rule is asserted in the subprocess
+    assert out["port_fallbacks"] == out["fallbacks"] == ["embedding[dim0]=49155 !% model"]
+    assert out["n_params"] > 100_000_000
+    print(out)
 
 
 def test_grad_accum_with_a_plan():

@@ -8,7 +8,10 @@ or two (v) bf16 ulps, the parameters within 1e-6 of what each side's own
 moments give); a 1x1 card mesh equal to the single-device step bit for
 bit; the compressed step within the reference test's bounds of the exact
 step without the bf16 cast (loss 1e-4, parameters 5e-3, a parameter moved
-by more than 1e-6); sequence-
+by more than 1e-6), and its reduced gradient, read back from its moments,
+within each leaf's int8 step of the exact step's, where the reference's
+biased reduce and the sum without the division must fail
+(``test_torch_dist_helpers.reduce_error``); sequence-
 sharded decode attention within 2e-5 of ``decode_attention``; the pipeline
 within 1e-5 of the sequential stack; and ``--mesh host --device cuda:0``
 resumed. TF32 stays off. Marked ``gpu``; every test skips where torch sees
@@ -33,8 +36,10 @@ from repro_torch.models.layers.attention import decode_attention
 from repro_torch.models.zoo import build
 from repro_torch.serving.decode_attn import seq_sharded_decode_attention
 from repro_torch.training import OptConfig, adamw_init, make_train_step
+from repro_torch.training import train as train_mod
 from repro_torch.training.train import make_compressed_dp_step, sharded_adamw_init
-from test_torch_dist_helpers import assert_replicas_identical, assert_step_matches
+from test_torch_dist_helpers import (CONTROLS, assert_replicas_identical, assert_step_matches,
+                                     reduce_error, row_steps)
 
 pytestmark = pytest.mark.gpu
 
@@ -100,31 +105,57 @@ def test_one_by_one_card_mesh_is_the_single_device_step(cuda, name):
         assert torch.equal(got[n], p.detach()), n
 
 
-def test_compressed_step_on_the_card(cuda):
+def _compressed_card_step(cuda):
+    """(model, net, batch, mesh, compressed step's (params, opt, metrics),
+    its starting weights): reduced glm4-9b, the reference test's batch
+    shape and configuration, on 8x1 card entries."""
     cfg = reduced(ARCHS["glm4-9b"])
     model = build(cfg)
     net = model.init(torch.Generator(cuda).manual_seed(0), cuda)
     rng = np.random.default_rng(0)
     batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (8, 16)), device=cuda)
              for k in ("tokens", "labels")}
-    ocfg = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     mesh = _mesh("8x1", cuda)
     start = {n: p.detach().clone() for n, p in net.named_parameters()}
     params = {n: place(t, mesh, ()) for n, t in start.items()}
     opt = {"m": {n: s.map(torch.zeros_like) for n, s in params.items()},
            "v": {n: s.map(torch.zeros_like) for n, s in params.items()},
            "step": place(torch.zeros((), dtype=torch.int32), mesh, ())}
-    params, opt, m2 = make_compressed_dp_step(model, ocfg, mesh, ("data",))(
+    out = make_compressed_dp_step(model, COMPRESSED_OPT, mesh, ("data",))(
         params, opt, batch, torch.Generator(cuda).manual_seed(42))
+    return model, net, batch, mesh, out, start
+
+
+COMPRESSED_OPT = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+
+
+def test_compressed_step_on_the_card(cuda):
+    model, net, batch, _, (params, _, m2), start = _compressed_card_step(cuda)
     # the exact step without the bf16 cast, as the compressed step reads
     # the weights: on the card the cast alone moves this loss by 1.6e-4
-    _, m1 = make_train_step(model, ocfg, cast_bf16=False)(
+    _, m1 = make_train_step(model, COMPRESSED_OPT, cast_bf16=False)(
         net, adamw_init(dict(net.named_parameters())), batch)
     assert abs(float(m1["loss"]) - float(m2["loss"])) < 1e-4
     diffs = [float((params[n].shards[0, 0] - p.detach()).abs().max())
              for n, p in net.named_parameters()]
     assert max(diffs) < 5e-3
     assert max(float((params[n].shards[0, 0] - start[n]).abs().max()) for n in start) > 1e-6
+
+
+@pytest.mark.parametrize("reduce", sorted(CONTROLS))
+def test_compressed_reduce_on_the_card(cuda, monkeypatch, reduce):
+    if CONTROLS[reduce] is not None:
+        monkeypatch.setattr(train_mod, "compressed_psum", CONTROLS[reduce])
+    model, net, batch, mesh, (_, c_opt, c_met), _ = _compressed_card_step(cuda)
+    plan = make_plan(mesh)
+    params = redistribute(net, plan)
+    exact, _ = make_train_step(model, COMPRESSED_OPT, plan, cast_bf16=False)
+    _, e_opt, e_met = exact(params, sharded_adamw_init(params, plan), batch)
+    err = reduce_error({n: s.shards[0, 0] for n, s in c_opt["m"].items()},
+                       float(c_met["grad_norm"]), gather(e_opt["m"], cuda),
+                       float(e_met["grad_norm"]), row_steps(model, net, batch, 8),
+                       COMPRESSED_OPT)
+    assert err <= 1.0 if reduce == "port" else err > 1.0, err
 
 
 @pytest.mark.parametrize("window", [0, 24])
