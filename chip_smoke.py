@@ -191,7 +191,21 @@ machine: the kernels build from the sources in the checkout into
    repro_torch.launch.train --arch glm4-9b --reduced --mesh host --device
    cuda:0`` (4x2 of cuda:0), 4 steps with checkpoints at 2 and 4, resumed
    from step 2: the same losses and the same step-4 checkpoint, bit for
-   bit.
+   bit;
+17. roofline (no kernel of rows 1-11): ``launch.dryrun.lower_cell``'s
+   arithmetic at the cells this smoke measured, reusing the earlier
+   phases' results: phase dist's granite-moe-1b-a400m plan step on a 1x1
+   mesh of the card and on its 2x2 (whose entries share the card: the
+   step and bytes summed over them, ``_one_card``), and phase lm's
+   gemma3-4b prefill and decode. Each measured step must take at least its
+   roofline step time and each measured peak at least the bytes the step
+   holds before it starts (``argument_bytes``); the two plan steps' peak
+   estimates must lie within ``ROOFLINE_PEAK_BAND`` of their measured
+   peaks, and the serving ones are printed beside theirs as a ratio. Last,
+   the mining count row's ``t_memory`` at row 4's timed shape beside row
+   4's time, and the tiled count priced on the H100 beside row 11's time
+   and bound. The whole dry run runs on the CPU (``tests/
+   test_torch_dryrun.py`` pins its records), not here.
 
 Each kernel's ``bound_ms`` is the larger of its bytes over the memory rate
 and the least time of its operations. Phase 1 measures the card's rates of
@@ -233,6 +247,9 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.roofline.hw import H100  # noqa: E402  (the port must be in this checkout)
+
 KERNEL_SOURCE = "src/repro_torch/kernels/intersect/csrc/intersect.cu"
 COVERAGE = "coverage_accumulate_indexed"
 ANCHORED = "coverage_accumulate_anchored"
@@ -255,7 +272,7 @@ KERNELS = {
     "intersect_count_gathered": (f"{_PALLAS}:244", False, False),
 }
 DONATING = "intersect_classify_write_gathered_donating"
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+HBM_BYTES_PER_S = H100.hbm_bw  # H100 SXM device memory rate (data sheet): 3.35e12
 # The fewest operations a sum of popcounts of ANDs over words needs: the
 # AND of each word, then a carry-save (Harley-Seal) tree of two 3-input
 # logic operations per word that leaves one popcount per HARLEY_SEAL_WORDS
@@ -2901,8 +2918,8 @@ TRAIN_B, TRAIN_S = 2, 20  # the reduced steps' batch
 TRAIN_STEP_TOL = 1e-4  # of a leaf's largest |m| or |v| (tests/test_torch_train_rule.py)
 TRAIN_FLIP_SHARE = 1e-3  # most entries that may differ by a bf16 ulp of the gradient
 BF16_ULP = 2.0 ** -7
-# NVIDIA's data sheet: H100 SXM dense bf16 tensor-core peak (cited, not measured)
-BF16_PEAK_FLOPS = 989e12
+# NVIDIA's data sheet: H100 SXM dense bf16 tensor-core peak, 989e12 (cited, not measured)
+BF16_PEAK_FLOPS = H100.peak_bf16_flops
 
 
 def _train_batch(cfg, b: int, s: int, seed: int) -> dict:
@@ -3350,7 +3367,8 @@ def _dist_profile(device, run) -> dict:
 def _dist_one_by_one(device, batch: dict) -> dict:
     """One plan step at full width on a 1x1 card mesh against phase
     train's single-device step from the same weights and batch: the loss,
-    the gradient norm, and every parameter and moment, bit for bit."""
+    the gradient norm, and every parameter and moment, bit for bit; the
+    plan step's time and peak (phase roofline holds them)."""
     from repro_torch.configs import ARCHS
     from repro_torch.models.zoo import build
     from repro_torch.training import OptConfig, adamw_init, make_train_step
@@ -3367,6 +3385,7 @@ def _dist_one_by_one(device, batch: dict) -> dict:
     del net, opt, met
     torch.cuda.empty_cache()
     one = _dist_full_run(device, "1x1", [batch])
+    step_ms, peak_gb = one["step_s"][0] * 1e3, one["peak_gb"]
     if one["losses"][0] != loss or one["grad_norm"][0] != gnorm:
         fail(f"phase dist: full width 1x1: loss {one['losses'][0]} and norm "
              f"{one['grad_norm'][0]} != single-device {loss} and {gnorm}")
@@ -3378,7 +3397,8 @@ def _dist_one_by_one(device, batch: dict) -> dict:
                      "step")
             n += 1
     del one, want
-    return {"loss": loss, "grad_norm": gnorm, "leaves_equal": n}
+    return {"loss": loss, "grad_norm": gnorm, "leaves_equal": n, "step_ms": step_ms,
+            "peak_gb": peak_gb}
 
 
 def _dist_full_width(device) -> dict:
@@ -3762,11 +3782,137 @@ def phase_dist(device) -> dict:
     return out
 
 
+# a plan step's peak estimate over its measured peak. The estimate counts
+# every gradient of the row at once beside the step's peak activations; the
+# step holds only those its backward has reached (for phase dist's cell up
+# to 5.3 GB of about 40), so it may lie above by that much, not below. A
+# term missed or counted twice (the moments 10.7 GB, a gathered copy or the
+# gradients 5.3 GB) leaves the band
+ROOFLINE_PEAK_BAND = (0.9, 1.25)
+
+
+def _one_card(rec: dict) -> tuple[float, float, float]:
+    """``(step_s, argument_bytes, peak_estimate_bytes)`` of a train record
+    whose mesh entries all sit on one card. The card runs every computing
+    entry's work in turn: the step takes at least the larger of their flops
+    at the card's peak and every entry's bytes at its memory rate (each
+    computing entry moves ``ROW_TERMS``, dev0 also its own terms, every
+    entry the optimizer's; the copies between entries stay in the card's
+    memory and are among those bytes). The card holds every entry's
+    arguments, one row's step at a time, and the rows' gradients summed so
+    far while a later row runs."""
+    from repro_torch.launch.dryrun import ROW_TERMS
+
+    rl, mem = rec["roofline"], rec["memory"]
+    rows, entries, d = rec["compute_entries"], rec["entries"], rl["bytes_detail"]
+    nbytes = (sum(d.values()) + (rows - 1) * sum(d[k] for k in ROW_TERMS)
+              + (entries - 1) * d["optimizer"])
+    step = max(rows * rl["t_compute"], nbytes / H100.hbm_bw)
+    argument = mem["argument_bytes"] * entries
+    held = mem["detail"]["row_gradients"] if rows > 1 else 0
+    peak = argument + sum(v for k, v in mem["detail"].items() if k != "argument") + held
+    return step, argument, peak
+
+
+def phase_roofline(device, timing: dict, tiled: dict, lm: dict, dist: dict) -> dict:
+    """``launch.dryrun``'s arithmetic at the cells this smoke measured (no
+    kernel of rows 1-11; nothing runs on the card): each measured step must
+    take at least its roofline step time, each measured peak at least the
+    bytes the step holds before it starts, and each plan step's peak
+    estimate must lie within ROOFLINE_PEAK_BAND of its measured peak."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import lower_cell, lower_mining, mining_terms, tiled_terms
+    from repro_torch.launch.mesh import mesh_from_shape
+
+    t_phase = time.perf_counter()
+    one = mesh_from_shape((1, 1), ("data", "model"), [device])
+    two = mesh_from_shape((2, 2), ("data", "model"), [device] * 4)
+    plan_shape = ShapeConfig("smoke_dist", DIST_FULL["seq"], DIST_FULL["batch"], "train")
+    d11, d22, serve = dist["full"]["one"], dist["full"]["2x2"], LM_SERVE
+    cases = [
+        ("plan 1x1", DIST_ARCH, plan_shape, one, {"plan_step": d11["step_ms"]},
+         {"plan_step": d11["peak_gb"] * 1e9}),
+        ("plan 2x2", DIST_ARCH, plan_shape, two, {"plan_step": d22["step_ms_median"]},
+         {"plan_step": d22["peak_gb"] * 1e9}),
+        ("prefill", LM_ARCH, ShapeConfig("smoke_prefill", serve["prompt_len"], serve["batch"],
+                                         "prefill"), one,
+         {k: lm[k]["prefill_s"] * 1e3 for k in ("cli", "inproc")},
+         {k: lm[k]["peak_gb"] * 1e9 for k in ("cli", "inproc")}),
+        ("decode", LM_ARCH, ShapeConfig("smoke_decode", serve["prompt_len"] + serve["max_new"],
+                                        serve["batch"], "decode"), one,
+         {k: lm[k]["step_ms_median"] for k in ("cli", "inproc")},
+         {k: lm[k]["peak_gb"] * 1e9 for k in ("cli", "inproc")}),
+    ]
+    out = {"cells": {}}
+    for label, arch, shape, mesh, steps, peaks in cases:
+        rec = lower_cell(arch, shape, mesh=mesh)
+        rl, mem = rec["roofline"], rec["memory"]
+        plan = shape.kind == "train"
+        if plan:
+            step_s, arg, est = _one_card(rec)
+        else:
+            step_s, arg, est = rl["step_time"], mem["argument_bytes"], mem["peak_estimate_bytes"]
+        bound_ms = step_s * 1e3
+        cell = {"bound_ms": bound_ms, "t_compute_ms": rl["t_compute"] * 1e3,
+                "t_memory_ms": rl["t_memory"] * 1e3, "t_collective_ms": rl["t_collective"] * 1e3,
+                "argument_gb": arg / 1e9, "peak_estimate_gb": est / 1e9, "steps_ms": steps,
+                "peaks_gb": {k: v / 1e9 for k, v in peaks.items()},
+                "step_over_bound": {k: v / bound_ms for k, v in steps.items()},
+                "estimate_over_peak": {k: est / v for k, v in peaks.items()}}
+        out["cells"][label] = cell
+        shared = mesh.devices.size > 1
+        print(f"phase roofline: {label} {arch} B={shape.global_batch} S={shape.seq_len} on "
+              f"{rec['mesh']} of {device}"
+              f"{' (its entries share the card: summed over them)' if shared else ''}: "
+              f"step_time {bound_ms:.3f} ms (dev0's compute {cell['t_compute_ms']:.3f}, memory "
+              f"{cell['t_memory_ms']:.3f}, collective {cell['t_collective_ms']:.3f}) beside "
+              f"measured {', '.join(f'{k} {v:.3f} ms' for k, v in steps.items())} "
+              f"(x{', x'.join(f'{v:.1f}' for v in cell['step_over_bound'].values())}); "
+              f"peak_estimate {est / 1e9:.2f} GB beside measured "
+              f"{', '.join(f'{k} {v / 1e9:.2f} GB' for k, v in peaks.items())} (ratio "
+              f"{', '.join(f'{v:.3f}' for v in cell['estimate_over_peak'].values())}"
+              f"{f' within {ROOFLINE_PEAK_BAND}' if plan else ''}); argument {arg / 1e9:.2f} GB; "
+              f"dev0's detail " + json.dumps({k: round(v / 1e9, 3)
+                                              for k, v in mem["detail"].items()}), flush=True)
+        for k, v in steps.items():
+            if v < bound_ms:
+                fail(f"phase roofline: {label} {k} step {v:.3f} ms is faster than its roofline "
+                     f"step time {bound_ms:.3f} ms: a count is wrong")
+        for k, v in peaks.items():
+            if v < arg:
+                fail(f"phase roofline: {label} {k} peak {v / 1e9:.2f} GB is below the bytes the "
+                     f"step holds before it starts, {arg / 1e9:.2f} GB: a count is wrong")
+        for k, r in cell["estimate_over_peak"].items():
+            if plan and not ROOFLINE_PEAK_BAND[0] <= r <= ROOFLINE_PEAK_BAND[1]:
+                fail(f"phase roofline: {label} {k} peak estimate {est / 1e9:.2f} GB is {r:.3f} "
+                     f"of the measured peak, outside {ROOFLINE_PEAK_BAND}: a count is wrong")
+
+    r4 = timing["intersect_count_indexed"]
+    count = mining_terms(r4["t"], r4["W"], r4["M"], 1, 1, write=False)["roofline"]
+    at11 = tiled_terms(tiled["T"], TILED_BM, tiled["frontier"]["W"])
+    prod = lower_mining(False)[0]
+    out["mining"] = {"count_t_memory_ms": count["t_memory"] * 1e3, "row4_kernel_ms": r4["ms"],
+                     "row4_bound_ms": r4["bound_ms"], "tiled_row11": at11,
+                     "tiled_production": prod["roofline"]}
+    print(f"phase roofline: mining count row at row 4's shape (t={r4['t']}, W={r4['W']}, "
+          f"M={r4['M']}, one entry): t_memory {count['t_memory'] * 1e3:.4f} ms, t_compute "
+          f"{count['t_compute'] * 1e3:.4f} ms beside row 4's kernel_ms {r4['ms']:.4f} and "
+          f"bound_ms {r4['bound_ms']:.4f}; the tiled entry priced on the H100 at row 11's "
+          f"shape (T={tiled['T']}, bm={TILED_BM}, W={tiled['frontier']['W']}): t_memory "
+          f"{at11['t_memory'] * 1e3:.4f} ms (both blocks of every tile fetched) t_compute "
+          f"{at11['t_compute'] * 1e3:.4f} ms beside row 11's kernel_ms {tiled['kernel_ms']:.4f} "
+          f"and bound_ms {tiled['bound_ms']:.4f}; at the dry run's shape ({prod['shape']}, "
+          f"pod16x16) t_memory {prod['roofline']['t_memory'] * 1e3:.4f} ms t_compute "
+          f"{prod['roofline']['t_compute'] * 1e3:.4f} ms", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase roofline: ok phase_s={out['phase_s']:.1f}", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
         sys.exit(2)
-    sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (the port must be in this checkout)
 
     device = torch.device("cuda", 0)
@@ -3806,9 +3952,10 @@ def main() -> None:
     del table_bits, qi3, poker_res
     tiled = phase_tiled(device, poker_prep, rates)
     del poker_prep
-    phase_lm(device)
+    lm = phase_lm(device)
     phase_train(device)
-    phase_dist(device)
+    dist = phase_dist(device)
+    phase_roofline(device, timing, tiled, lm, dist)
 
     kernels = []
     for name, (replaces, _, _) in KERNELS.items():

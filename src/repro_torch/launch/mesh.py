@@ -10,6 +10,11 @@ may repeat a device — ``mesh_from_spec("2x2", devices=["cuda:0"] * 4)`` runs
 the whole shard logic (one tensor and one launch per shard) on one card, as
 the reference's forced host device count does on the CPU.
 
+``make_production_mesh`` gives the reference's pod shapes, 16x16 over
+``(data, model)`` and 2x16x16 over ``(pod, data, model)``; it is a function,
+so importing this module touches no device. ``launch.dryrun`` builds them on
+``meta`` entries.
+
 A torch mesh never spans processes. Across processes the miner runs as a
 lockstep fleet (``core.fleet``): ``distributed_init`` joins a
 ``torch.distributed.TCPStore`` (process 0 hosts it), over which
@@ -33,6 +38,7 @@ import torch
 
 __all__ = [
     "Mesh",
+    "make_production_mesh",
     "make_host_mesh",
     "mesh_for_device",
     "mesh_from_shape",
@@ -100,6 +106,16 @@ def mesh_from_shape(shape, axis_names, devices=None) -> Mesh:
     for i, d in enumerate(devs):
         grid[i] = d
     return Mesh(grid.reshape(shape), axis_names)
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
+    """The production mesh: 16x16 over ``(data, model)`` (256 entries), or
+    with ``multi_pod`` 2x16x16 over ``(pod, data, model)`` (512). ``devices``
+    lists the entries in row-major order and may repeat a device or be
+    ``"meta"``; by default the visible cards, and too few raise."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return mesh_from_shape(shape, axes, devices)
 
 
 def mesh_from_spec(spec: str, devices=None, *, num_processes: int = 1) -> Mesh:

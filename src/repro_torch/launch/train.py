@@ -17,8 +17,13 @@ the ZeRO-3 step of ``training.train``) on the reference's host mesh shape,
 visible cards and the shape shrinks to them, as the reference's does (1x1
 on one card); with an indexed device (``cuda:0``) or ``cpu`` all 8 entries
 repeat it, as the reference's forced host devices do on the CPU.
-``production`` and ``multipod`` are not ported yet. ``train(mesh=...)``
-takes any ``launch.mesh.Mesh`` with a ``model`` axis.
+``production`` (16x16) and ``multipod`` (2x16x16) build
+``launch.mesh.make_production_mesh`` over ``--device`` the same way: a bare
+``cuda`` takes the visible cards and stops with the mesh's error when there
+are fewer (as the reference stops off a pod; a one-card machine runs them
+only as ``launch.dryrun`` counts them), an indexed device or ``cpu``
+repeats in every entry.
+``train(mesh=...)`` takes any ``launch.mesh.Mesh`` with a ``model`` axis.
 
 ``--ckpt-dir`` saves ``{"params", "opt"}`` under the port's parameter names
 every ``--ckpt-every`` steps (written in the background); ``--resume`` takes
@@ -50,9 +55,10 @@ from ..distributed.sharding import make_plan
 from ..models.zoo import build
 from ..training.optimizer import OptConfig
 from ..training.train import init_train_state, make_train_step
-from .mesh import make_host_mesh
+from .mesh import make_host_mesh, make_production_mesh
 
-__all__ = ["synthetic_lm_batches", "frontend_inputs", "host_mesh", "train", "main"]
+__all__ = ["synthetic_lm_batches", "frontend_inputs", "host_mesh", "production_mesh", "train",
+           "main"]
 
 
 def synthetic_lm_batches(vocab: int, batch: int, seq: int, seed: int = 0):
@@ -125,6 +131,15 @@ def host_mesh(device):
     if device.type == "cuda" and device.index is None:
         return make_host_mesh()
     return make_host_mesh(devices=[device] * 8)
+
+
+def production_mesh(device, multi_pod: bool = False):
+    """``--mesh production`` / ``multipod`` over ``device`` (see the module
+    note)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return make_production_mesh(multi_pod=multi_pod)
+    return make_production_mesh(multi_pod=multi_pod, devices=[device] * (512 if multi_pod else 256))
 
 
 def train(arch: str, *, reduced: bool = False, steps: int = 100, batch: int = 8, seq: int = 64,
@@ -211,7 +226,8 @@ def main(argv=None) -> None:
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--mesh", default="none",
                     choices=["none", "host", "production", "multipod"],
-                    help="none: one device; host: the 4x2 host mesh over --device")
+                    help="none: one device; host: the 4x2 host mesh over --device; "
+                         "production / multipod: 16x16 / 2x16x16 over --device")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
@@ -220,19 +236,23 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda", help="torch device (default: the card)")
     ap.add_argument("--out", default=None, help="write the run's JSON record here")
     args = ap.parse_args(argv)
+    mesh = None
     if args.mesh in ("production", "multipod"):
-        ap.error(f"--mesh {args.mesh}: the production meshes are not ported yet; --mesh none "
-                 "or host runs")
+        try:
+            mesh = production_mesh(args.device, multi_pod=args.mesh == "multipod")
+        except RuntimeError as e:
+            ap.error(f"--mesh {args.mesh}: {e}")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         ap.error(f"--device {args.device}: torch sees no CUDA card (pass --device cpu)")
     if args.batch % args.grad_accum:
         ap.error(f"--batch {args.batch} is not a multiple of --grad-accum {args.grad_accum}")
+    if args.mesh == "host":
+        mesh = host_mesh(args.device)
 
     rec = train(args.arch, reduced=args.reduced, steps=args.steps, batch=args.batch,
                 seq=args.seq, lr=args.lr, grad_accum=args.grad_accum, ckpt_dir=args.ckpt_dir,
                 ckpt_every=args.ckpt_every, resume=args.resume, seed=args.seed,
-                log_every=args.log_every, device=args.device,
-                mesh=host_mesh(args.device) if args.mesh == "host" else None)
+                log_every=args.log_every, device=args.device, mesh=mesh)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rec, f)

@@ -190,6 +190,24 @@ def _update_entries(params: dict, opt: dict, grads_at, gnorm_at, opt_cfg, rank2)
 TABLE, HEAD = "embed.embedding", "embed.lm_head"
 
 
+def row_reads(full, cast: set, partial: bool, tied: bool) -> tuple[dict, dict]:
+    """``(leaves, reads)`` of one data row: ``full`` yields ``(name, full
+    float32 tensor)`` pairs (each is transformed before the next is drawn);
+    ``leaves`` are the tensors that take gradients, ``reads`` what the
+    layers read in place of the parameters (``row_grads`` below)."""
+    leaves = {}
+    for n, t in full:
+        leaves[n] = (t.to(torch.bfloat16).float() if partial and n in cast else t
+                     ).requires_grad_()
+    if not partial:
+        return leaves, {n: t.to(torch.bfloat16) if n in cast else t for n, t in leaves.items()}
+    reads = dict(leaves)
+    if tied and TABLE in cast:
+        leaves[HEAD] = leaves[TABLE].detach().clone().requires_grad_()
+        reads.update({HEAD: leaves[HEAD].T, TABLE: leaves[TABLE].to(torch.bfloat16)})
+    return leaves, reads
+
+
 def _plan_step(model: Model, opt_cfg: OptConfig, plan, grad_accum: int, cast_bf16: bool,
                rank2):
     net = model.abstract_params()  # the layers; every leaf is read through _reading
@@ -213,19 +231,8 @@ def _plan_step(model: Model, opt_cfg: OptConfig, plan, grad_accum: int, cast_bf1
         gather reads the bfloat16 values, whose per-token rounding happens
         within a row."""
         with record_function("plan_step.gather"):
-            leaves = {}
-            for n, s in params.items():
-                t = s.gather(dev)
-                leaves[n] = (t.to(torch.bfloat16).float() if partial and n in cast else t
-                             ).requires_grad_()
-            if not partial:
-                reads = {n: t.to(torch.bfloat16) if n in cast else t for n, t in leaves.items()}
-            else:
-                reads = dict(leaves)
-                if tied and TABLE in cast:
-                    leaves[HEAD] = leaves[TABLE].detach().clone().requires_grad_()
-                    reads.update({HEAD: leaves[HEAD].T,
-                                  TABLE: leaves[TABLE].to(torch.bfloat16)})
+            leaves, reads = row_reads(((n, s.gather(dev)) for n, s in params.items()), cast,
+                                      partial, tied)
         mb = {k: v.to(dev) for k, v in mb.items()}
         with _reading(net, reads):
             loss = model.train_loss(net, mb, ctx=ctx)

@@ -4,7 +4,8 @@ resident service there and generates from a reduced LM, and by a scan of
 every import statement in the port's sources and in chip_smoke.py. The
 interpreter also takes two training steps of a reduced LM, imports the
 distributed modules and takes one sharded step on a 2x2 mesh of CPU
-entries."""
+entries, then imports the roofline modules and the dry run and counts one
+cell on the production mesh."""
 
 import ast
 import os
@@ -51,6 +52,11 @@ from repro_torch.launch.mesh import mesh_from_spec
 rec = train("glm4-9b", reduced=True, steps=1, batch=4, seq=8,
             mesh=mesh_from_spec("2x2", devices=["cpu"] * 4))
 assert len(rec["losses"]) == 1 and rec["mesh"]["n_devices"] == 4
+import repro_torch.roofline.hw, repro_torch.roofline.analytic, repro_torch.roofline.analysis
+import repro_torch.launch.dryrun
+from repro_torch.launch.dryrun import lower_cell
+rec = lower_cell("mamba2-370m", "decode_32k")
+assert rec["status"] == "ok" and rec["memory"]["fits"] and rec["compute_entries"] == 16
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
 print("BAD", bad)

@@ -12,10 +12,12 @@
   reference's step from that state on the same batch: the loss within 1e-5
   and the parameters and moments under ``test_torch_train_helpers``' rule
   for a later step (the reference compiled without excess precision).
-* The frontend stubs' inputs, ``--mesh`` other than ``none`` or ``host``
-  (``production`` and ``multipod`` are not ported yet; ``host`` is in
-  ``test_torch_dist_elastic``), and the default ``--device cuda`` without a
-  card (an error, no CPU run)."""
+* The frontend stubs' inputs; ``--mesh production`` and ``multipod`` on a
+  bare ``--device cuda`` with fewer cards than their 256 and 512 entries
+  (the production mesh's error), and ``--mesh production --device cpu``
+  (256 CPU entries: one step whose loss is the single-device step's within
+  1e-5; ``host`` is in ``test_torch_dist_elastic``); and the default
+  ``--device cuda`` without a card (an error, no CPU run)."""
 
 import json
 import os
@@ -154,11 +156,29 @@ def test_frontend_archs_train(arch, tmp_path):
 
 
 def test_mesh_other_than_none_is_refused(capsys):
-    for mesh in ("production", "multipod"):
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    for mesh, n in (("production", 256), ("multipod", 512)):
+        if cards >= n:
+            continue
         with pytest.raises(SystemExit) as e:
-            port_train.main([*ARGS, "--mesh", mesh])
+            port_train.main([*ARGS, "--device", "cuda", "--mesh", mesh])
         assert e.value.code == 2
-        assert "production meshes are not ported" in capsys.readouterr().err
+        assert f"a mesh of {n} entries needs {n} cards and torch sees {cards}" in \
+            capsys.readouterr().err
+
+
+def test_production_mesh_over_cpu_entries(tmp_path):
+    args = ["--arch", "glm4-9b", "--reduced", "--device", "cpu", "--batch", "16", "--seq", "8",
+            "--steps", "1"]
+    recs = {}
+    for mesh in ("none", "production"):
+        out = tmp_path / f"{mesh}.json"
+        port_train.main([*args, "--mesh", mesh, "--out", str(out)])
+        recs[mesh] = json.loads(out.read_text())
+    assert recs["production"]["mesh"] == {"shape": {"data": 16, "model": 16}, "n_devices": 256}
+    assert recs["production"]["device"] == "cpu"
+    got, want = recs["production"]["losses"][0], recs["none"]["losses"][0]
+    assert abs(got - want) <= 1e-5, (got, want)
 
 
 def test_default_device_without_card_is_an_error(capsys):
