@@ -46,7 +46,6 @@ import numpy as np
 from ..kernels.intersect.ref import CLASS_EMIT, CLASS_STORE
 from ..obs import cost as _obs_cost
 from ..obs import metrics as _om
-from ..obs.trace import device_sync as _obs_device_sync
 from ..obs.trace import span as _obs_span
 from .bitops import host_bits
 from .bounds import apply_bounds
@@ -83,9 +82,12 @@ _LEVELS_TOTAL = _om.counter(
 )
 
 
-def _record_level(ls, path: str, sp, n_rows: int = 0) -> None:
+def _record_level(ls, path: str, sp, n_rows: int = 0, device_s: float | None = None) -> None:
     """Fold one finished level's stats into the registry, its span, and the
-    request's CostEnvelope (no-op without one attached)."""
+    request's CostEnvelope (no-op without one attached). ``device_s`` is the
+    level's dispatches' own device time where they carry it (traced CUDA
+    dispatches); without it the envelope takes the host's dispatch-and-wait
+    clock."""
     env = _obs_cost.current()
     if env is not None:
         env.add(
@@ -96,7 +98,7 @@ def _record_level(ls, path: str, sp, n_rows: int = 0) -> None:
             itemsets_emitted=ls.emitted,
         )
         if path == "device":
-            env.add_device_time(ls.time_intersect)
+            env.add_device_time(ls.time_intersect if device_s is None else device_s)
     _LEVEL_SECONDS.observe(ls.time_candidates, stage="candidates")
     _LEVEL_SECONDS.observe(ls.time_intersect, stage="intersect")
     _LEVEL_SECONDS.observe(ls.time_classify, stage="classify")
@@ -333,13 +335,14 @@ def mine_levels(
 
             ls.time_total = time.perf_counter() - lt0
             stats.append(ls)
-            _record_level(ls, "device" if device_path else "host", _lsp, n)
-
             # eager retirement: the parent level's pipeline residency,
             # frontier tables and parent bitsets all drop now — device
             # memory holds only the transition's two live levels
-            # (peak_level_bytes)
+            # (peak_level_bytes). Every batch is consumed, so retiring also
+            # resolves the traced dispatches' device times.
             pipe.retire()
+            _record_level(ls, "device" if device_path else "host", _lsp, n,
+                          getattr(pipe, "device_s", None))
             grandparent_index = level_index
             old = frontier
             frontier = nxt
@@ -445,15 +448,18 @@ def _advance_host(
             if k == config.kmax and config.use_bounds and ok.any():
                 ct0 = time.perf_counter()
                 alive_idx = np.nonzero(ok)[0]
-                sub = CandidateBatch(
-                    i_idx=cand.i_idx[alive_idx],
-                    j_idx=cand.j_idx[alive_idx],
-                    itemsets=cand.itemsets[alive_idx],
-                )
-                pruned = apply_bounds(
-                    sub, level, level_index, grandparent_index, n, tau
-                )
-                ls.bound_pruned += int(pruned.sum())
+                with _obs_span("frontier.bounds", candidates=len(alive_idx)) as _bsp:
+                    sub = CandidateBatch(
+                        i_idx=cand.i_idx[alive_idx],
+                        j_idx=cand.j_idx[alive_idx],
+                        itemsets=cand.itemsets[alive_idx],
+                    )
+                    pruned = apply_bounds(
+                        sub, level, level_index, grandparent_index, n, tau
+                    )
+                    n_pruned = int(pruned.sum())
+                    _bsp.set(pruned=n_pruned)
+                ls.bound_pruned += n_pruned
                 ok[alive_idx[pruned]] = False
                 ls.time_candidates += time.perf_counter() - ct0
 
@@ -532,7 +538,8 @@ def _advance_device(
     host_bounds = k == config.kmax and config.use_bounds
     level_index = None
     if host_bounds or need_index:
-        level_index = ItemsetIndex(frontier.itemsets, frontier.counts, n_symbols=prep.n_l)
+        with _obs_span("level.index", itemsets=frontier.t):
+            level_index = ItemsetIndex(frontier.itemsets, frontier.counts, n_symbols=prep.n_l)
 
     new_pairs, new_counts, new_children = [], [], []
 
@@ -608,31 +615,35 @@ def _advance_device(
             ct0 = time.perf_counter()
             pairs_d, ok_d = placement.frontier_dispatch(fstate, lo, hi, n_pairs)
             ls.time_candidates += time.perf_counter() - ct0
-            _obs_device_sync(pairs_d, ok_d)
 
         if host_bounds:
             # the one remaining host-assisted step: Lemma 4.6/Cor. 4.7 needs
             # the grandparent lookups, so survivors come to the host here
             with _obs_span("frontier.candidates", phase="bounds"):
                 ct0 = time.perf_counter()
-                okh = ok_d.cpu().numpy()
-                pairs_h = pairs_d.cpu().numpy()[okh]
-                n_sup = int(okh.sum())
+                # the wait for the batch's frontier kernels ends in these copies
+                with _obs_span("frontier.fetch", pairs=n_pairs):
+                    okh = ok_d.cpu().numpy()
+                    pairs_h = pairs_d.cpu().numpy()[okh]
+                    n_sup = int(okh.sum())
                 ls.support_pruned += n_pairs - n_sup
                 if n_sup == 0:
                     ls.time_candidates += time.perf_counter() - ct0
                     continue
-                lpos = _candidate_lpos(frontier, pairs_h)
-                sub = CandidateBatch(
-                    i_idx=pairs_h[:, 0].astype(np.int64),
-                    j_idx=pairs_h[:, 1].astype(np.int64),
-                    itemsets=lpos,
-                )
-                pruned = apply_bounds(
-                    sub, frontier.as_level(), level_index, grandparent_index,
-                    n, tau,
-                )
-                ls.bound_pruned += int(pruned.sum())
+                with _obs_span("frontier.bounds", candidates=n_sup) as _bsp:
+                    lpos = _candidate_lpos(frontier, pairs_h)
+                    sub = CandidateBatch(
+                        i_idx=pairs_h[:, 0].astype(np.int64),
+                        j_idx=pairs_h[:, 1].astype(np.int64),
+                        itemsets=lpos,
+                    )
+                    pruned = apply_bounds(
+                        sub, frontier.as_level(), level_index, grandparent_index,
+                        n, tau,
+                    )
+                    n_pruned = int(pruned.sum())
+                    _bsp.set(pruned=n_pruned)
+                ls.bound_pruned += n_pruned
                 keep = ~pruned
                 ls.intersections += int(keep.sum())
                 ls.time_candidates += time.perf_counter() - ct0

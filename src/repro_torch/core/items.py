@@ -19,6 +19,7 @@ import dataclasses
 
 import numpy as np
 
+from ..obs.trace import span as _obs_span
 from .bitops import popcount_rows
 
 __all__ = [
@@ -121,6 +122,11 @@ def itemize(dataset: np.ndarray) -> ItemTable:
     dataset = np.asarray(dataset)
     if dataset.ndim != 2:
         raise ValueError(f"dataset must be 2-D, got shape {dataset.shape}")
+    with _obs_span("itemize"):
+        return _itemize(dataset)
+
+
+def _itemize(dataset: np.ndarray) -> ItemTable:
     n, m = dataset.shape
     n_words = (n + WORD_BITS - 1) // WORD_BITS
 

@@ -22,6 +22,7 @@ import dataclasses
 
 import numpy as np
 
+from ..obs.trace import span as _obs_span
 from .items import ItemTable
 
 __all__ = ["Preprocessed", "preprocess", "set_row_group_collective", "ORDERINGS"]
@@ -169,7 +170,11 @@ def preprocess(
         raise ValueError(f"tau must be positive (Def. 3.3 usage), got {tau}")
     if ordering not in ORDERINGS:
         raise ValueError(f"ordering must be one of {ORDERINGS}, got {ordering!r}")
+    with _obs_span("preprocess"):
+        return _preprocess(table, tau, ordering, seed)
 
+
+def _preprocess(table: ItemTable, tau: int, ordering: str, seed: int) -> Preprocessed:
     n = table.n_rows
     freq = table.freq
     uniform = np.nonzero(freq == n)[0]

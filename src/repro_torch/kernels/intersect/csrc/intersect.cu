@@ -199,16 +199,25 @@ void launch_gathered(void* a, const void* b, int64_t W, int64_t M, const void* m
           static_cast<int32_t*>(cnt), static_cast<int32_t*>(cls), vec4);
 }
 
+// Record `event` (a cudaEvent_t, or null for none) on `s`.
+int record(void* event, cudaStream_t s) {
+  return event ? static_cast<int>(cudaEventRecord(static_cast<cudaEvent_t>(event), s)) : 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launch one instantiation on `stream`; returns cudaGetLastError() (0 = the
 // launch was accepted). M must be >= 1: the caller skips empty batches.
+// `start` and `end` (cudaEvent_t, or null) are recorded on `stream` just
+// before and just after the launch, so they time the kernel alone.
 int intersect_indexed(const void* bits, long long t, long long W, const void* pairs,
                       long long M, const void* pc, int tau, void* child, void* cnt,
-                      void* cls, int write, int classify, int vec4, void* stream) {
+                      void* cls, int write, int classify, int vec4, void* stream,
+                      void* start, void* end) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (int err = record(start, s)) return err;
   if (write && classify) {
     launch<true, true>(bits, t, W, pairs, M, pc, tau, child, cnt, cls, vec4, s);
   } else if (classify) {
@@ -218,20 +227,23 @@ int intersect_indexed(const void* bits, long long t, long long W, const void* pa
   } else {
     launch<false, false>(bits, t, W, pairs, M, pc, tau, child, cnt, cls, vec4, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (int err = static_cast<int>(cudaGetLastError())) return err;
+  return record(end, s);
 }
 
 // Launch one gathered instantiation on `stream`: a, b are (M, W) operand
 // rows, minp (M,) (classify only), child (M, W) (write, not in place).
 // inplace = 1 writes the child over a (write and classify only). Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for an in-place request
-// without write + classify. M must be >= 1.
+// without write + classify. M must be >= 1. `start` and `end` as for
+// intersect_indexed.
 int intersect_gathered(void* a, const void* b, long long W, long long M, const void* minp,
                        int tau, void* child, void* cnt, void* cls, int write, int classify,
-                       int inplace, int vec4, void* stream) {
+                       int inplace, int vec4, void* stream, void* start, void* end) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (inplace && !(write && classify)) return static_cast<int>(cudaErrorInvalidValue);
+  if (int err = record(start, s)) return err;
   if (inplace) {
-    if (!(write && classify)) return static_cast<int>(cudaErrorInvalidValue);
     launch_gathered<true, true, true>(a, b, W, M, minp, tau, nullptr, cnt, cls, vec4, s);
   } else if (write && classify) {
     launch_gathered<true, true, false>(a, b, W, M, minp, tau, child, cnt, cls, vec4, s);
@@ -242,7 +254,8 @@ int intersect_gathered(void* a, const void* b, long long W, long long M, const v
   } else {
     launch_gathered<false, false, false>(a, b, W, M, minp, tau, nullptr, cnt, nullptr, vec4, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (int err = static_cast<int>(cudaGetLastError())) return err;
+  return record(end, s);
 }
 
 const char* intersect_error_string(int code) {

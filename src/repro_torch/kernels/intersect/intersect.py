@@ -12,7 +12,11 @@ Every wrapper, on its inputs:
   the result — the path the CPU tests take;
 * all tensors on one CUDA device: the kernel launches on the current stream
   (no synchronisation) into outputs allocated here, and its launch count
-  goes up by one. A batch of ``M = 0`` pairs launches nothing.
+  goes up by one. A batch of ``M = 0`` pairs launches nothing. Inside a
+  :func:`timed_launches` block the launcher also records a CUDA event on the
+  stream just before and just after the kernel (in C, so no host work falls
+  between them and the launch), and its device time can be read once the
+  stream has passed them.
 
 The donating wrapper writes the child over ``a`` and returns ``a`` itself,
 on either device.
@@ -23,7 +27,9 @@ version, and a build or launch failure is an error.
 
 from __future__ import annotations
 
+import contextvars
 import ctypes
+from contextlib import contextmanager
 
 import torch
 
@@ -33,6 +39,8 @@ from . import ref as _ref
 __all__ = [
     "LAUNCHES",
     "reset_launches",
+    "timed_launches",
+    "launch_seconds",
     "intersect_classify_write_indexed",
     "intersect_classify_count_indexed",
     "intersect_write_indexed",
@@ -67,15 +75,67 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+_TIMED: "contextvars.ContextVar[list | None]" = contextvars.ContextVar(
+    "repro_torch_timed_launches", default=None
+)
+# read event pairs kept for reuse, per device: creating and destroying a pair
+# costs ~60 µs of host time on the H100's host, recording it again ~9 µs
+_EVENT_POOL: dict[int, list] = {}
+
+
+@contextmanager
+def timed_launches():
+    """Collect the CUDA events recorded on the stream around every kernel
+    launched inside the block (none on the CPU), as ``(device index, start,
+    end)``; read them with :func:`launch_seconds`. Nothing here waits for
+    the device."""
+    events: list = []
+    token = _TIMED.set(events)
+    try:
+        yield events
+    finally:
+        _TIMED.reset(token)
+
+
+def _launch_events(stream) -> tuple:
+    """Inside a :func:`timed_launches` block, the handles of a
+    ``(start, end)`` pair of CUDA events, added to the block's list, for the
+    launcher to record around its kernel; else ``(None, None)``."""
+    timed = _TIMED.get()
+    if timed is None:
+        return None, None
+    pool = _EVENT_POOL.setdefault(stream.device_index, [])
+    try:
+        start, end = pool.pop()
+    except IndexError:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream)  # creates each event; the launcher records it again
+        end.record(stream)
+    timed.append((stream.device_index, start, end))
+    return start.cuda_event, end.cuda_event
+
+
+def launch_seconds(events: list) -> float | None:
+    """Device seconds of the launches a :func:`timed_launches` block
+    recorded, once the stream has passed all of them (None before then:
+    reading them waits for nothing). Read events go back to the pool."""
+    if not all(end.query() for _, _, end in events):
+        return None
+    seconds = sum(start.elapsed_time(end) for _, start, end in events) / 1e3
+    for device, start, end in events:
+        _EVENT_POOL[device].append((start, end))
+    return seconds
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("intersect")
     if lib.intersect_indexed.argtypes is None:
         lib.intersect_indexed.argtypes = [
-            _VP, _LL, _LL, _VP, _LL, _VP, _INT, _VP, _VP, _VP, _INT, _INT, _INT, _VP,
+            _VP, _LL, _LL, _VP, _LL, _VP, _INT, _VP, _VP, _VP, _INT, _INT, _INT, _VP, _VP, _VP,
         ]
         lib.intersect_indexed.restype = _INT
         lib.intersect_gathered.argtypes = [
-            _VP, _VP, _LL, _LL, _VP, _INT, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP,
+            _VP, _VP, _LL, _LL, _VP, _INT, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP, _VP, _VP,
         ]
         lib.intersect_gathered.restype = _INT
         lib.intersect_error_string.argtypes = [_INT]
@@ -130,13 +190,15 @@ def _launch(name, bits, pairs, parent_counts, tau, child, cnt, cls) -> None:
     vec4 = w % 4 == 0 and bits.data_ptr() % 16 == 0 and (child is None or child.data_ptr() % 16 == 0)
     lib = _lib()
     with torch.cuda.device(bits.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream()
+        start, end = _launch_events(stream)
         err = lib.intersect_indexed(
             bits.data_ptr(), t, w, pairs.data_ptr(), m,
             None if parent_counts is None else parent_counts.data_ptr(), int(tau),
             None if child is None else child.data_ptr(), cnt.data_ptr(),
             None if cls is None else cls.data_ptr(),
-            int(child is not None), int(cls is not None), int(vec4), stream,
+            int(child is not None), int(cls is not None), int(vec4), stream.cuda_stream,
+            start, end,
         )
     if err != 0:
         raise RuntimeError(f"{name}: launch failed: {lib.intersect_error_string(err).decode()}")
@@ -232,13 +294,15 @@ def _launch_gathered(name, a, b, minp, tau, child, cnt, cls, inplace=False) -> N
             and (child is None or child.data_ptr() % 16 == 0))
     lib = _lib()
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream()
+        start, end = _launch_events(stream)
         err = lib.intersect_gathered(
             a.data_ptr(), b.data_ptr(), w, m,
             None if minp is None else minp.data_ptr(), int(tau),
             None if child is None else child.data_ptr(), cnt.data_ptr(),
             None if cls is None else cls.data_ptr(),
-            int(inplace or child is not None), int(cls is not None), int(inplace), int(vec4), stream,
+            int(inplace or child is not None), int(cls is not None), int(inplace), int(vec4),
+            stream.cuda_stream, start, end,
         )
     if err != 0:
         raise RuntimeError(f"{name}: launch failed: {lib.intersect_error_string(err).decode()}")

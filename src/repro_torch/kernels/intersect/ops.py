@@ -25,6 +25,18 @@ by ``(i, j)`` so neighbouring pairs share their first parent row; outputs are
 un-permuted before the caller sees them. The candidate generator already
 emits ``i``-sorted batches, so the common case is one O(M) check.
 
+Tracing: under an active trace (``repro_torch.obs.trace``) each dispatch
+sets ``launched``, the padded pair count, on the span around it, and times
+the CUDA kernels it launches with events on their stream
+(``intersect.timed_launches``). :meth:`LevelPipeline.retire` (the level's
+last batch consumed) resolves each dispatch's events into ``device_s`` on
+its span and their sum into :attr:`LevelPipeline.device_s`; nothing waits
+for the device. The events sit just around each kernel, recorded by the
+launcher in C, not around the whole dispatch: the stream is often idle when
+a batch is dispatched, and events recorded before the dispatch would also
+time the host's work up to the launch (the pairs' upload, the Python in
+between).
+
 Padding contract: pair rows added for padding point at row 0 twice; a
 self-pair is *uniform* (count == min parent count), so fused classify marks
 padding ``CLASS_SKIP``. Buckets are powers of two (at least 256), as in the
@@ -39,6 +51,7 @@ import numpy as np
 from ...core.bitops import host_bits
 from ...core.exec_cache import exec_family
 from ...obs import metrics as _om
+from ...obs.trace import Span, current_span
 from . import intersect as _k
 from . import ref as _ref
 from .ref import CLASS_EMIT, CLASS_SKIP, CLASS_STORE
@@ -314,6 +327,11 @@ class LevelPipeline:
     With ``fused_classify=True`` the per-pair class codes come from the
     placement itself; with ``False`` the handle returns ``classes=None`` and
     the caller classifies on the host (the unfused baseline).
+
+    ``device_s`` is the summed device time of the CUDA kernels the level's
+    traced dispatches launched, once :meth:`retire` has resolved it; None
+    where none was timed (no trace, or no CUDA kernel: the CPU, the torch
+    engine).
     """
 
     def __init__(
@@ -334,14 +352,36 @@ class LevelPipeline:
         # logical word count: device bitsets may carry word padding
         self.n_words = int(bits.shape[1]) if n_words is None else int(n_words)
         self._state = placement.prepare(bits, parent_counts, self.tau, fused_classify=fused_classify)
+        self._timed: list = []  # (span, its timed_launches() events) per traced dispatch
+        self.device_s: float | None = None
 
     def retire(self) -> None:
         """Drop this level's prepared residency (the buffers the placement
-        uploaded itself), once the level's last batch has been consumed."""
+        uploaded itself), once the level's last batch has been consumed, and
+        resolve the traced dispatches' device times."""
         state, self._state = self._state, None
         if state is not None:
             _LEVELS_RETIRED.inc()
             self.placement.release(state)
+        timed, self._timed = self._timed, []
+        for sp, events in timed:
+            seconds = _k.launch_seconds(events)
+            if seconds is not None:
+                sp.set(device_s=seconds)
+                self.device_s = (self.device_s or 0.0) + seconds
+
+    def _dispatch(self, pairs, write_children: bool):
+        """``placement.dispatch`` of one padded batch, recorded on the span
+        around it (see the module's "Tracing")."""
+        sp = current_span()
+        if not isinstance(sp, Span):
+            return self.placement.dispatch(self._state, pairs, write_children)
+        sp.set(launched=int(pairs.shape[0]))
+        with _k.timed_launches() as events:
+            out = self.placement.dispatch(self._state, pairs, write_children)
+        if events:
+            self._timed.append((sp, events))
+        return out
 
     def _materializer(self, out, m: int, inverse=None):
         child_d, cnt_d, cls_d = out
@@ -371,7 +411,7 @@ class LevelPipeline:
         """
         _PIPE_BATCHES.inc(mode="padded")
         _PIPE_PAIRS.inc(int(pairs.shape[0]), mode="padded")
-        out = self.placement.dispatch(self._state, pairs, write_children)
+        out = self._dispatch(pairs, write_children)
         return BatchHandle(self._materializer(out, m), raw=out)
 
     def submit(self, pairs: np.ndarray, write_children: bool) -> BatchHandle:
@@ -392,7 +432,7 @@ class LevelPipeline:
             if order is not None:
                 pairs = pairs[order]
         padded = _pad_pairs(pairs, self.placement.padded_size(m))
-        out = self.placement.dispatch(self._state, padded, write_children)
+        out = self._dispatch(padded, write_children)
         return BatchHandle(self._materializer(out, m, inverse))
 
 

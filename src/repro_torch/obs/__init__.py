@@ -23,7 +23,7 @@ from . import cost, flight, logs, metrics, trace
 from .cost import CostEnvelope, SlowMineLog
 from .flight import FlightRecorder, LastCrashReport
 from .metrics import REGISTRY, counter, gauge, histogram, lint_exposition
-from .trace import TRACER, current_trace_id, device_sync, span, start_trace
+from .trace import TRACER, current_trace_id, span, start_trace
 
 __all__ = [
     "cost",
@@ -42,7 +42,6 @@ __all__ = [
     "histogram",
     "lint_exposition",
     "current_trace_id",
-    "device_sync",
     "span",
     "start_trace",
 ]

@@ -70,7 +70,15 @@ SLOW_MINES = _om.counter(
 
 class CostEnvelope:
     """Accumulates one request's resource counters. Thread-safe: the
-    scheduler worker and the submitting thread share the same object."""
+    scheduler worker and the submitting thread share the same object.
+
+    ``device_s`` sums the device-frontier levels' intersection time. A
+    level whose dispatches were timed on the card (a traced mine on the
+    ``cuda`` engine: CUDA events around each kernel launch, ``device_s`` on
+    the ``intersect.dispatch`` span) adds that device time; any other level
+    (the CPU, the ``torch`` engine, or a mine with no trace active) adds the
+    host's clock of its dispatches and of the waits for them
+    (``LevelStats.time_intersect``)."""
 
     _FIELDS = (
         "rows_scanned",

@@ -1,8 +1,11 @@
-"""Structural tracing for mining requests (stdlib only, apart from the
-CUDA synchronisation in :func:`device_sync` — this module is a leaf).
+"""Structural tracing for mining requests (stdlib only — this module is a
+leaf).
 
 A :class:`Trace` is one request's tree of :class:`Span` intervals
-(trace_id / span_id / parent_id, wall-clock timing via ``perf_counter``),
+(trace_id / span_id / parent_id; durations on ``perf_counter``, and each
+start and end also stamped in integer ns of ``time.time_ns()``, the clock
+``torch.profiler``'s Kineto events carry, so spans line up with a device
+trace),
 threaded through ``MiningService`` → scheduler → ``mine_levels``'s
 level/batch loop → placement dispatch and the WAL/snapshot path by plain
 ``with span("name"):`` blocks at the sites that already keep stage clocks.
@@ -15,10 +18,10 @@ context-variable read, so library callers that never start a trace pay
 nothing. Finished traces land in a ring buffer (:meth:`Tracer.last` /
 :meth:`Tracer.get`) served by ``GET /trace``.
 
-Optional device-sync timing: :func:`device_sync` blocks on device arrays
-inside a span *only* when ``TRACER.sync_devices`` is enabled, so a span's
-wall time then includes the device work it dispatched (off by default —
-syncing defeats the double-buffered pipeline and is a debugging mode).
+Device time is not taken here: a CUDA dispatch times itself with events on
+its own stream and leaves the result on its span as an attribute
+(``kernels.intersect.ops.LevelPipeline``), so no span ever waits on the
+device.
 """
 
 from __future__ import annotations
@@ -40,7 +43,6 @@ __all__ = [
     "start_trace",
     "current_trace_id",
     "current_span",
-    "device_sync",
 ]
 
 _CTX: "contextvars.ContextVar[tuple | None]" = contextvars.ContextVar(
@@ -55,9 +57,11 @@ def _new_span_id() -> str:
 
 
 class Span:
-    """One timed interval in a trace tree."""
+    """One timed interval in a trace tree: ``t0``/``t1`` in ``perf_counter``
+    seconds (durations), ``t0_ns``/``t1_ns`` the same instants in
+    ``time.time_ns()`` (the device trace's clock)."""
 
-    __slots__ = ("trace_id", "span_id", "parent_id", "name", "t0", "t1", "attrs")
+    __slots__ = ("trace_id", "span_id", "parent_id", "name", "t0", "t1", "t0_ns", "t1_ns", "attrs")
 
     def __init__(self, trace_id: str, parent_id: str | None, name: str,
                  attrs: dict | None = None):
@@ -66,7 +70,9 @@ class Span:
         self.parent_id = parent_id
         self.name = name
         self.t0 = time.perf_counter()
+        self.t0_ns = time.time_ns()
         self.t1: float | None = None
+        self.t1_ns: int | None = None
         self.attrs = attrs or {}
 
     @property
@@ -76,6 +82,10 @@ class Span:
     def set(self, **attrs) -> None:
         self.attrs.update(attrs)
 
+    def end(self) -> None:
+        self.t1 = time.perf_counter()
+        self.t1_ns = time.time_ns()
+
     def to_dict(self) -> dict:
         return {
             "span_id": self.span_id,
@@ -83,6 +93,8 @@ class Span:
             "name": self.name,
             "start": self.t0,
             "duration_s": self.duration,
+            "t0_ns": self.t0_ns,
+            "t1_ns": self.t1_ns,
             "attrs": dict(self.attrs),
         }
 
@@ -170,7 +182,6 @@ class Tracer:
         self._lock = threading.Lock()
         self._traces: deque[Trace] = deque(maxlen=max_traces)
         self.sample_every = max(1, int(sample_every))
-        self.sync_devices = False
         self._started = 0
         self._sampled_out = 0
         self._appended = 0  # monotone: doubles as the per-trace seq cursor
@@ -182,15 +193,12 @@ class Tracer:
         self._listeners: list = []
 
     def configure(self, *, max_traces: int | None = None,
-                  sample_every: int | None = None,
-                  sync_devices: bool | None = None) -> None:
+                  sample_every: int | None = None) -> None:
         with self._lock:
             if max_traces is not None:
                 self._traces = deque(self._traces, maxlen=max(1, int(max_traces)))
             if sample_every is not None:
                 self.sample_every = max(1, int(sample_every))
-            if sync_devices is not None:
-                self.sync_devices = bool(sync_devices)
 
     # -- listeners -----------------------------------------------------------
 
@@ -240,7 +248,7 @@ class Tracer:
         try:
             yield root
         finally:
-            root.t1 = time.perf_counter()
+            root.end()
             trace.add(root)
             _CTX.reset(token)
             if self._listeners:
@@ -269,7 +277,7 @@ class Tracer:
         try:
             yield sp
         finally:
-            sp.t1 = time.perf_counter()
+            sp.end()
             trace.add(sp)
             _CTX.reset(token)
             if self._listeners:
@@ -313,7 +321,6 @@ class Tracer:
                 "appended": self._appended,
                 "dropped": self._dropped,
                 "sample_every": self.sample_every,
-                "sync_devices": self.sync_devices,
             }
 
     def reset(self) -> None:
@@ -339,19 +346,3 @@ def current_span() -> "Span | _NullSpan":
     ctx = _CTX.get()
     return ctx[1] if ctx is not None else _NULL_SPAN
 
-
-def device_sync(*tensors) -> bool:
-    """Wait for the CUDA devices holding ``tensors`` to finish their queued
-    work — only when tracing with ``TRACER.sync_devices`` on, so the
-    enclosing span's wall time includes the dispatched device work. Returns
-    True if it synchronised. A device fault raises here."""
-    if not TRACER.sync_devices or _CTX.get() is None:
-        return False
-    devices = {t.device for t in tensors if t is not None and getattr(t, "is_cuda", False)}
-    if not devices:
-        return False
-    import torch
-
-    for d in devices:
-        torch.cuda.synchronize(d)
-    return True

@@ -73,3 +73,29 @@ def test_mine_on_card_matches_numpy_engine(cuda, fused):
     tup = lambda s: (s.k, s.candidates, s.support_pruned, s.bound_pruned, s.intersections,
                      s.emitted, s.skipped_absent_uniform, s.stored)
     assert list(map(tup, got.stats)) == list(map(tup, want.stats))
+
+
+def test_traced_dispatches_carry_their_device_time(cuda):
+    """Under a trace, each dispatch's CUDA events resolve into ``device_s``
+    on its span: positive, no longer than from the dispatch's start to its
+    result on the host (the batch's ``intersect.sync``), and summed into
+    the request's cost envelope; read events serve later launches."""
+    from repro_torch.obs import cost
+    from repro_torch.obs.trace import TRACER
+
+    D = np.random.default_rng(3).integers(0, 5, size=(3000, 7))
+    for _ in range(2):  # the second mine records on the first one's events again
+        with cost.attach() as env, TRACER.start("request"):
+            res = mine(D, KyivConfig(tau=2, kmax=4, max_pairs_per_chunk=256))
+        trace = TRACER.last(1)[0]
+        assert res.completed
+        total = 0.0
+        for level in trace.find("mine.level"):
+            kids = sorted(trace.children_of(level), key=lambda s: s.t0)
+            dispatches = [s for s in kids if s.name == "intersect.dispatch"]
+            syncs = [s for s in kids if s.name == "intersect.sync"]
+            assert dispatches and len(dispatches) == len(syncs)
+            for d, s in zip(dispatches, syncs):
+                assert 0 < d.attrs["device_s"] <= s.t1 - d.t0
+                total += d.attrs["device_s"]
+        assert env.device_s == pytest.approx(total)

@@ -46,7 +46,7 @@ def obs(request):
 @pytest.fixture()
 def tracer_reset():
     yield TRACER
-    TRACER.configure(max_traces=64, sample_every=1, sync_devices=False)
+    TRACER.configure(max_traces=64, sample_every=1)
     TRACER.reset()
 
 
@@ -224,15 +224,131 @@ def test_span_is_noop_without_active_trace(obs):
     assert tr.last(10) == []
 
 
-def test_device_sync_is_a_noop_off_the_card(tracer_reset):
+# the cold mine's spans: itemize, preprocess, bound pruning, dispatches
+
+PRUNED = _rand(2, 100, 8, dom=2)  # level 3 bound-prunes 271 of 476 candidates
+
+
+def _traced_mine(engine, **kw):
+    device = "cpu" if engine == "torch" else None
+    with TRACER.start("request") as root:
+        res = mine(PRUNED, KyivConfig(tau=1, kmax=3, engine=engine, device=device, **kw))
+    trace = TRACER.last(1)[0]
+    assert trace.root is root
+    return res, trace
+
+
+def _by_id(trace):
+    return {s.span_id: s for s in trace.spans}
+
+
+@pytest.mark.parametrize("engine", ["torch", "numpy"])
+def test_traced_mine_spans_itemize_preprocess_and_bound_pruning(tracer_reset, engine):
+    """itemize and preprocess are siblings of ``mine`` under the request;
+    the pruning level holds ``frontier.bounds`` (under the bounds phase of
+    ``frontier.candidates`` on the device frontier, under the batch's
+    ``frontier.candidates`` on the host path), and the device frontier times
+    its fetches and its ItemsetIndex builds."""
+    res, trace = _traced_mine(engine)
+    spans = _by_id(trace)
+    root = trace.root.span_id
+    for name in ("itemize", "preprocess", "mine"):
+        (sp,) = trace.find(name)
+        assert sp.parent_id == root
+    assert trace.find("itemize")[0].t1 <= trace.find("preprocess")[0].t0 <= trace.find("mine")[0].t0
+    level_k = {s.span_id: s.attrs["k"] for s in trace.find("mine.level")}
+    bounds = trace.find("frontier.bounds")
+    assert bounds and res.stats[2].bound_pruned == 271
+    for sp in bounds:
+        parent = spans[sp.parent_id]
+        assert parent.name == "frontier.candidates"
+        assert parent.attrs.get("phase") == ("bounds" if engine == "torch" else None)
+        assert level_k[parent.parent_id] == 3
+    assert sum(sp.attrs["pruned"] for sp in bounds) == res.stats[2].bound_pruned
+    assert sum(sp.attrs["candidates"] for sp in bounds) == (
+        res.stats[2].bound_pruned + res.stats[2].intersections)
+    fetches, index = trace.find("frontier.fetch"), trace.find("level.index")
+    if engine == "numpy":
+        assert not fetches and not index  # the host path has no device copy, and its index is its frontier
+        return
+    assert sum(sp.attrs["pairs"] for sp in fetches) == res.stats[2].candidates
+    assert all(spans[sp.parent_id].attrs.get("phase") == "bounds" for sp in fetches)
+    assert sorted(level_k[sp.parent_id] for sp in index) == [2, 3]
+
+
+def test_nesting_leaves_the_candidates_total_unchanged(tracer_reset):
+    """The new spans sit inside ``frontier.candidates``: each within its
+    parent on both clocks, and the candidates spans still sum to the level
+    loop's candidates clock."""
+    res, trace = _traced_mine("torch", max_pairs_per_chunk=64)
+    spans = _by_id(trace)
+    inner = trace.find("frontier.fetch") + trace.find("frontier.bounds")
+    assert len(inner) > 2
+    for sp in inner:
+        parent = spans[sp.parent_id]
+        assert parent.t0 <= sp.t0 <= sp.t1 <= parent.t1
+        assert parent.t0_ns <= sp.t0_ns <= sp.t1_ns <= parent.t1_ns
+    total = sum(sp.duration for sp in trace.find("frontier.candidates"))
+    assert sum(sp.duration for sp in inner) <= total
+    assert total == pytest.approx(sum(s.time_candidates for s in res.stats), rel=0.05, abs=2e-3)
+
+
+def test_launched_is_each_batch_bucket(tracer_reset):
+    from repro_torch.kernels.intersect.ops import next_bucket
+
+    res, trace = _traced_mine("torch", max_pairs_per_chunk=64)
+    dispatches = trace.find("intersect.dispatch")
+    assert len(dispatches) > 3
+    for sp in dispatches:
+        assert sp.attrs["launched"] == next_bucket(sp.attrs["pairs"])
+    # every counted pair was launched, padding besides
+    assert sum(s.intersections for s in res.stats[1:]) <= sum(sp.attrs["launched"] for sp in dispatches)
+
+
+@pytest.mark.parametrize("engine", ["torch", "numpy"])
+def test_device_time_is_absent_off_the_card(tracer_reset, engine):
+    """Off the card no dispatch carries ``device_s``; the service's cost
+    envelope keeps the host's dispatch-and-wait clock."""
+    _, trace = _traced_mine(engine)
+    assert trace.find("intersect.dispatch")
+    assert not [sp for sp in trace.spans if "device_s" in sp.attrs]
+    svc = MiningService.from_dataset(PRUNED, engine=engine, device="cpu")
+    try:
+        r = svc.mine(tau=1, kmax=3)
+        host = sum(s.time_intersect for s in r.result.stats[1:]) if engine == "torch" else 0.0
+        assert r.info["cost"]["device_s"] == pytest.approx(host, abs=1e-5)
+    finally:
+        svc.close()
+
+
+def test_record_level_prefers_the_dispatches_device_time():
+    from repro_torch.core.frontier import _record_level
+    from repro_torch.core.kyiv import LevelStats
+    from repro_torch.obs.trace import _NULL_SPAN
+
+    ls = LevelStats(k=2, time_intersect=0.5)
+    with port_cost.attach() as env:
+        _record_level(ls, "device", _NULL_SPAN, 10, 0.125)
+        _record_level(ls, "device", _NULL_SPAN, 10, None)
+        _record_level(ls, "host", _NULL_SPAN, 10, 0.25)
+    assert env.device_s == pytest.approx(0.125 + 0.5)
+
+
+def test_span_ns_stamps_hold_a_profiler_marker(tracer_reset):
+    """``t0_ns``/``t1_ns`` are on the clock of torch.profiler's events: a
+    ``record_function`` opened inside a span lies within its stamps."""
     import torch
 
-    from repro_torch.obs.trace import device_sync
-
-    assert device_sync(torch.zeros(3)) is False  # not tracing
-    TRACER.configure(sync_devices=True)
-    with TRACER.start("req"):
-        assert device_sync(torch.zeros(3), None) is False  # no CUDA tensor
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with TRACER.start("req"):
+            with TRACER.span("outer") as sp:
+                with torch.profiler.record_function("span_probe"):
+                    torch.ones(4).sum()
+    (marker,) = [e for e in prof.profiler.kineto_results.events() if e.name() == "span_probe"]
+    assert sp.t0_ns <= marker.start_ns() <= marker.end_ns() <= sp.t1_ns
+    assert sp.t1_ns - sp.t0_ns == pytest.approx((sp.t1 - sp.t0) * 1e9, abs=2e5)
+    d = TRACER.last(1)[0].to_dict()["spans"][0]["children"][0]
+    assert (d["t0_ns"], d["t1_ns"]) == (sp.t0_ns, sp.t1_ns)
 
 
 def test_scheduler_propagates_trace_and_cost_context(tracer_reset):
