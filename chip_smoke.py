@@ -15,10 +15,18 @@ machine: the kernels build from the sources in the checkout into
    bit for bit, at the main path's shapes and at edge cases, then timed with
    CUDA events beside its memory bound and its plain version (the gathered
    kernels also beside the torch gather that feeds them); the donating
-   kernel must write its child over its first operand;
+   kernel must write its child over its first operand; then the itemize
+   kernels (``kernels/itemize``, phase itemize) against the host
+   ``_itemize`` and their plain versions on the card, field for field, on
+   the CPU tests' edge tables (both column routes), both benchmark cells'
+   tables at full size and phase 7's exposed table, nothing left allocated,
+   and timed at the cells' shapes beside their byte bound (the int64 table
+   read once, the bits written once), the upload and the whole call;
 3. main path: a cold mine of the paper's Poker-hand shape (1,000,000 rows,
    10 columns, tau=1, kmax=4, default settings) with ``engine="cuda"``, then
-   with ``engine="torch"`` on the same card; itemsets and per-level stats
+   with ``engine="torch"`` on the same card; ``prepare`` must itemize on the
+   card (each itemize kernel launched once) and give the host's item
+   table; itemsets and per-level stats
    must be identical, the fused kernels must have launched, and a small
    input is checked against the numpy engine and the brute-force oracle;
 4. host-classified path: a Connect-4-shaped mine (67,557 x 43, tau=1,
@@ -256,6 +264,9 @@ ANCHORED = "coverage_accumulate_anchored"
 COVERAGE_SOURCE = "src/repro_torch/kernels/coverage/csrc/coverage.cu"
 COVERAGE_REPLACES = "src/repro/kernels/coverage/coverage.py:72"
 PRIVACY_ROWS = 500_000
+ITEMIZE = ("itemize_presence", "itemize_bits", "itemize_stats")
+ITEMIZE_SOURCE = "src/repro_torch/kernels/itemize/csrc/itemize.cu"
+ITEMIZE_REPLACES = "src/repro/core/items.py:115"  # the host itemize the kernels take over
 # Pallas kernels replaced, by wrapper name: (file:line of the TPU kernel,
 # writes the child, classifies). The gathered wrappers (name ends in
 # "_gathered" or "_gathered_donating") take pre-gathered operand rows.
@@ -675,6 +686,153 @@ def phase_kernels(device, n_words: int, batch_bucket: int, rates: dict):
     return rows
 
 
+# -- phase itemize ----------------------------------------------------------
+
+
+def _load_file(name: str, path: Path):
+    """A module of this checkout loaded by file (``bench/``, ``tests/`` are
+    no packages)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _cell_table(generator: str) -> np.ndarray:
+    """A benchmark cell's table at full size, from the benchmark's own
+    generator (``bench/data/<generator>.py``), its rows in a drawn order."""
+    mod = _load_file(f"bench_data_{generator}", ROOT / "bench" / "data" / f"{generator}.py")
+    D = mod.make(n=1_025_010, m=10, seed=0) if generator == "poker_like" else mod.make()
+    return np.ascontiguousarray(D[np.random.default_rng(2**31 + 5).permutation(len(D))])
+
+
+def _same_table(got, want, label: str) -> None:
+    """Every field of two item tables equal, dtypes and shapes included."""
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(b, np.ndarray) and (a.dtype != b.dtype or a.shape != b.shape):
+            fail(f"{label}: {f.name} is {a.dtype}{a.shape}, the host's {b.dtype}{b.shape}")
+        if not np.array_equal(a, b):
+            fail(f"{label}: {f.name} differs from the host's")
+
+
+def _itemize_timing(D: np.ndarray, device) -> dict:
+    """The itemize kernels alone at ``D``'s shape (every column dense, as in
+    both cells): the pass of ``kernels.itemize.ops.itemize_on_device`` up to
+    its kernels, then the presence, bits and stats kernels timed by CUDA
+    events beside their plain versions on the card and their byte bound
+    (the int64 table read once, the bits written once); the upload and the
+    whole call by the host's clock beside them."""
+    from repro_torch.kernels.itemize import itemize_on_device, ops
+    from repro_torch.kernels.itemize.ref import BASE, OFF, SPAN, SROW
+
+    n, m = D.shape
+    table, _ = ops._upload(D, device)
+    lo, hi = torch.aminmax(table, dim=0)
+    lo_hi = torch.stack((lo, hi)).cpu().numpy()
+    plan, slots = ops._plan(lo_hi[0], lo_hi[1], n)
+    if (plan[:, SROW] >= 0).any():
+        fail(f"itemize timing: a sorted column at shape {D.shape}")
+    params = torch.from_numpy(plan).to(device)
+    present = torch.empty(slots, dtype=torch.uint8, device=device)
+    ops._presence(table, plan, params, present, True)
+    ex = torch.zeros(slots + 1, dtype=torch.int64, device=device)
+    torch.cumsum(present, 0, dtype=torch.int64, out=ex[1:])
+    counts = ex[params[:, OFF] + params[:, SPAN]] - ex[params[:, OFF]]
+    host_counts = counts.cpu().numpy()
+    n_items, n_words = int(host_counts.sum()), (n + 31) // 32
+    plan[:, BASE] = np.cumsum(host_counts) - host_counts
+    params[:, BASE] = torch.cumsum(counts, 0) - counts
+    bits = torch.empty((n_items, n_words), dtype=torch.int32, device=device)
+    freq = torch.empty(n_items, dtype=torch.int64, device=device)
+    min_row = torch.empty_like(freq)
+    no_sorted = torch.empty((0, n), dtype=torch.int64, device=device)
+
+    def run(kernel: bool) -> None:
+        ops._presence(table, plan, params, present, kernel)
+        ops._bits_stats(table, plan, params, ex, no_sorted, bits, freq, min_row, kernel)
+
+    kernel_ms = time_ms(lambda: run(True), 20)
+    plain_ms = time_ms(lambda: run(False), 3)
+    del table, present, ex, bits, freq, min_row, no_sorted
+    torch.cuda.empty_cache()
+
+    def wall_ms(fn, reps: int = 7) -> float:
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(walls[1:]))
+
+    nbytes = n * m * 8 + n_items * n_words * 4
+    return {"shape": [n, m], "items": n_items, "W": n_words, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "upload_ms": wall_ms(lambda: ops._upload(D, device)),
+            "itemize_ms": wall_ms(lambda: itemize_on_device(D, device, "cuda"))}
+
+
+def phase_itemize(device) -> dict:
+    """The itemize kernels (``kernels/itemize/csrc/itemize.cu``) against the
+    host ``_itemize`` and their plain versions on the card, field for field:
+    the test tables' edge cases (both column routes), both cells' tables at
+    full size and phase privacy's exposed table (a 25,000-item column);
+    nothing left allocated; then timed at the cells' shapes."""
+    from repro_torch.core.items import _itemize
+    from repro_torch.data.synth import exposed_dataset
+    from repro_torch.kernels.itemize import LAUNCHES, itemize_on_device, reset_launches
+
+    t_phase = time.perf_counter()
+    helpers = _load_file("itemize_helpers", ROOT / "tests" / "test_torch_itemize_helpers.py")
+    reset_launches()
+    checks, routes = 0, {"dense": 0, "sorted": 0}
+    for case in sorted(helpers.CASES):
+        for n in helpers.ROWS:
+            D = helpers.CASES[case](n)
+            want = _itemize(D)
+            for engine in ("cuda", "torch"):
+                got, attrs = itemize_on_device(D, device, engine)
+                _same_table(got, want, f"itemize {case} n={n} engine={engine}")
+                checks += 1
+            routes["dense"] += attrs["dense_cols"]
+            routes["sorted"] += attrs["sorted_cols"]
+    full = {"poker-hand.cold-mine": _cell_table("poker_like"),
+            "connect-4.cold-mine": _cell_table("connect4_uci"),
+            "privacy": exposed_dataset(n=PRIVACY_ROWS, m=6, seed=0)}
+    peaks = {}
+    for label, D in full.items():
+        want = _itemize(D)
+        for engine in ("cuda", "torch"):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got, attrs = itemize_on_device(D, device, engine)
+            torch.cuda.synchronize()
+            if torch.cuda.memory_allocated() != held:
+                fail(f"itemize {label} engine={engine}: "
+                     f"{torch.cuda.memory_allocated() - held} bytes left allocated")
+            peaks[f"{label}.{engine}"] = torch.cuda.max_memory_allocated() - held
+            _same_table(got, want, f"itemize {label} engine={engine}")
+            checks += 1
+        del got, want
+    launches = dict(LAUNCHES)
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        fail(f"itemize: {missing} never launched ({launches})")
+    rows = {label: _itemize_timing(full[label], device)
+            for label in ("poker-hand.cold-mine", "connect-4.cold-mine")}
+    torch.cuda.empty_cache()
+    print("phase itemize: ok " + json.dumps({
+        "checks": checks, "edge_routes": routes, "launches": launches,
+        "temp_peak_bytes": peaks, "kernels": rows,
+        "phase_s": time.perf_counter() - t_phase}), flush=True)
+    return rows
+
+
 # -- phases 3 and 4 ---------------------------------------------------------
 
 
@@ -743,7 +901,10 @@ def _same_mine(got, want, label: str) -> None:
 
 def phase_main(device):
     from repro_torch.core import KyivConfig, brute_force_minimal_infrequent, mine, prepare
+    from repro_torch.core.items import _itemize
     from repro_torch.data.synth import poker_like
+    from repro_torch.kernels.itemize import LAUNCHES as ITEMIZE_LAUNCHES
+    from repro_torch.kernels.itemize import reset_launches as reset_itemize_launches
 
     # a small input first, held against the numpy engine and the oracle
     small = poker_like(n=3000, seed=1)[:, :6]
@@ -761,15 +922,22 @@ def phase_main(device):
     t0 = time.perf_counter()
     D = poker_like(n=1_000_000, m=10, seed=0)
     cfg = KyivConfig(tau=1, kmax=4, engine="cuda", device=str(device))
+    reset_itemize_launches()
     prep = prepare(D, cfg)
     prep_s = time.perf_counter() - t0
+    item_launches = dict(ITEMIZE_LAUNCHES)
+    if any(item_launches[k] != 1 for k in ITEMIZE):
+        fail(f"main path: prepare did not itemize on the card once ({item_launches})")
+    _same_table(prep.table, _itemize(D), "main path: the card's item table")
     summary, launches, res = _mine_pair(
         prep, cfg, "poker",
         ("intersect_classify_write_indexed", "intersect_classify_count_indexed"),
     )
+    launches.update(item_launches)
     print("phase main: ok " + json.dumps({"dataset": "poker_like(n=1000000, m=10, seed=0)",
                                           "W": prep.l_bits.shape[1], "n_l": prep.n_l,
-                                          "tau": 1, "kmax": 4, "prepare_s": prep_s, **summary}),
+                                          "tau": 1, "kmax": 4, "prepare_s": prep_s,
+                                          "itemize_launches": item_launches, **summary}),
           flush=True)
     return launches, prep, res
 
@@ -3925,6 +4093,7 @@ def main() -> None:
     from repro_torch.kernels.intersect import next_bucket
 
     timing = phase_kernels(device, n_words, next_bucket(batch_cap), rates)
+    itemize_rows = phase_itemize(device)
     launches, *poker = phase_main(device)
     main_wall_s = poker[1].wall_time
     connect_launches, *connect = phase_host_classified(device)
@@ -4000,6 +4169,19 @@ def main() -> None:
         "ms": tiled["kernel_ms"], "kernel_ms": tiled["kernel_ms"], "plain_ms": tiled["plain_ms"],
         "bound_ms": tiled["bound_ms"], "bound_by": tiled["bound_by"], "library_ms": None,
         "pairwise_ms": tiled["pairwise_ms"],
+    })
+    # the three itemize kernels as one entry: their time together at the
+    # Poker-hand cell's shape, and at the Connect-4 cell's beside it; the
+    # launches are the main path's prepare
+    ph, c4 = itemize_rows["poker-hand.cold-mine"], itemize_rows["connect-4.cold-mine"]
+    kernels.append({
+        "name": "itemize", "kernels": list(ITEMIZE), "route": "cuda", "source": ITEMIZE_SOURCE,
+        "replaces": ITEMIZE_REPLACES, "launches": {k: launches[k] for k in ITEMIZE},
+        "max_abs_err": 0, "ms": ph["kernel_ms"], "kernel_ms": ph["kernel_ms"],
+        "plain_ms": ph["plain_ms"], "bound_ms": ph["bound_ms"], "bound_by": ph["bound_by"],
+        "library_ms": None, "upload_ms": ph["upload_ms"], "itemize_ms": ph["itemize_ms"],
+        **{f"connect4_{k}": c4[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "upload_ms",
+                                            "itemize_ms")},
     })
     print(f"total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -118,12 +118,21 @@ def itemize(dataset: np.ndarray) -> ItemTable:
 
     Items are emitted column-major, values ascending within a column — a
     deterministic dense id assignment. Vectorised per column via np.unique.
+    The ``itemize`` span's ``path`` reads ``"host"``; ``core.kyiv.prepare``
+    builds the same table on one device's placement instead.
     """
     dataset = np.asarray(dataset)
     if dataset.ndim != 2:
         raise ValueError(f"dataset must be 2-D, got shape {dataset.shape}")
-    with _obs_span("itemize"):
+    with _obs_span("itemize") as sp:
+        sp.set(path="host")
         return _itemize(dataset)
+
+
+def device_dtype(dtype: np.dtype) -> bool:
+    """Whether a table of ``dtype`` can be itemized on a device: a signed or
+    unsigned integer of native byte order whose every value fits int64."""
+    return dtype.isnative and (dtype.kind == "i" or (dtype.kind == "u" and dtype.itemsize < 8))
 
 
 def _itemize(dataset: np.ndarray) -> ItemTable:

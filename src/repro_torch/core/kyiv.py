@@ -60,8 +60,8 @@ from ..obs import metrics as _om
 from ..obs.trace import span as _obs_span
 from ..obs.trace import start_trace as _obs_start_trace
 from .frontier import LevelFrontier, mine_levels
-from .items import ItemTable, itemize
-from .placement import resolve_placement
+from .items import ItemTable, device_dtype, itemize
+from .placement import DevicePlacement, resolve_placement
 from .preprocess import Preprocessed, preprocess
 from .prefix import Level
 from .support import ItemsetIndex
@@ -488,15 +488,35 @@ def _mine_preprocessed_inner(
     )
 
 
+def _itemize_on(dataset: np.ndarray, placement) -> ItemTable:
+    if not (isinstance(placement, DevicePlacement) and dataset.ndim == 2 and dataset.size
+            and device_dtype(dataset.dtype)):
+        return itemize(dataset)
+    from ..kernels.itemize.ops import itemize_on_device
+
+    with _obs_span("itemize") as sp:
+        table, attrs = itemize_on_device(dataset, placement.device, placement.engine)
+        sp.set(**attrs)
+    return table
+
+
 def prepare(dataset_or_table: "np.ndarray | ItemTable", config: KyivConfig) -> Preprocessed:
     """Itemize (if needed) and §4.1-preprocess for a config — the cold half of
     :func:`mine`, split out so callers holding a prebuilt :class:`ItemTable`
-    can reuse it across runs."""
-    table = (
-        dataset_or_table
-        if isinstance(dataset_or_table, ItemTable)
-        else itemize(dataset_or_table)
-    )
+    can reuse it across runs.
+
+    A dataset of integers that fit int64 is itemized on the placement's
+    device when the placement is one :class:`~repro_torch.core.placement.DevicePlacement`
+    (``kernels.itemize``: the CUDA kernels on engine ``cuda``, their plain
+    versions on ``torch``); any other dataset, and any other placement
+    (``numpy``, a mesh, a fleet), takes the host's :func:`itemize`. The table
+    is the same. The ``itemize`` span's ``path`` says which ran (``"cuda"``,
+    ``"torch"`` or ``"host"``); the device routes add ``dense_cols``,
+    ``sorted_cols`` and ``bytes_up``."""
+    if isinstance(dataset_or_table, ItemTable):
+        table = dataset_or_table
+    else:
+        table = _itemize_on(np.asarray(dataset_or_table), resolve_placement(config))
     return preprocess(table, config.tau, ordering=config.ordering, seed=config.seed)
 
 

@@ -28,6 +28,7 @@ SOURCES = {
     "coverage": _PKG / "coverage" / "csrc" / "coverage.cu",
     "tiled": _PKG / "intersect" / "csrc" / "tiled.cu",
     "probe": _PKG / "probe" / "csrc" / "rates.cu",
+    "itemize": _PKG / "itemize" / "csrc" / "itemize.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -3,12 +3,19 @@ for bit, and a small mine against the numpy engine. Marked ``gpu``; every
 test skips where torch sees no CUDA card (run them there with
 ``python -m pytest -m gpu tests/test_torch_gpu.py``)."""
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import KyivConfig, mine
+from repro_torch.core.items import _itemize
 from repro_torch.kernels.intersect import LAUNCHES, intersect as tk, ref as tref
+from repro_torch.kernels.itemize import LAUNCHES as ITEMIZE_LAUNCHES, itemize_on_device
+from repro_torch.obs.trace import TRACER
+from test_torch_itemize_helpers import CASES, ROWS, assert_same_table
 
 pytestmark = pytest.mark.gpu
 
@@ -99,3 +106,71 @@ def test_traced_dispatches_carry_their_device_time(cuda):
                 assert 0 < d.attrs["device_s"] <= s.t1 - d.t0
                 total += d.attrs["device_s"]
         assert env.device_s == pytest.approx(total)
+
+
+# the item table built by the itemize kernels (kernels/itemize/csrc/itemize.cu)
+
+
+@pytest.mark.parametrize("n", ROWS)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_itemize_kernels_equal_the_host(cuda, case, n):
+    D = CASES[case](n)
+    before = dict(ITEMIZE_LAUNCHES)
+    got, attrs = itemize_on_device(D, cuda, "cuda")
+    assert_same_table(got, _itemize(D))
+    assert attrs["path"] == "cuda"
+    assert ITEMIZE_LAUNCHES["itemize_bits"] == before["itemize_bits"] + 1
+    assert ITEMIZE_LAUNCHES["itemize_stats"] == before["itemize_stats"] + 1
+    assert ITEMIZE_LAUNCHES["itemize_presence"] == before["itemize_presence"] + (attrs["dense_cols"] > 0)
+
+
+def _bench_table(generator: str) -> np.ndarray:
+    """A benchmark table at full size from the benchmark's own generator
+    (``bench/data/<generator>.py``), its rows in a drawn order as there."""
+    path = Path(__file__).resolve().parents[1] / "bench" / "data" / f"{generator}.py"
+    spec = importlib.util.spec_from_file_location(f"bench_data_{generator}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    D = mod.make(n=1_025_010, m=10, seed=0) if generator == "poker_like" else mod.make()
+    return np.ascontiguousarray(D[np.random.default_rng(2**31 + 5).permutation(len(D))])
+
+
+@pytest.mark.parametrize("generator", ["poker_like", "connect4_uci"])
+def test_itemize_kernels_on_the_benchmark_tables(cuda, generator):
+    """Equal to the host, as the plain version on the card is; every column
+    dense; nothing left allocated, and Connect-4's temporary peak well under
+    its mine's 113 MB level loop."""
+    D = _bench_table(generator)
+    want = _itemize(D)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got, attrs = itemize_on_device(D, cuda, "cuda")
+    peak = torch.cuda.max_memory_allocated() - held
+    assert torch.cuda.memory_allocated() == held
+    assert_same_table(got, want)
+    assert (attrs["dense_cols"], attrs["sorted_cols"]) == (D.shape[1], 0)
+    assert attrs["bytes_up"] == D.nbytes + D.shape[1] * 40
+    if generator == "connect4_uci":
+        assert peak < 60e6
+    plain, attrs = itemize_on_device(D, cuda, "torch")
+    assert attrs["path"] == "torch"
+    assert_same_table(plain, want)
+
+
+def test_mine_on_the_cuda_route_equals_the_numpy_engine(cuda):
+    """``mine`` itemizes on the card (the span's ``path``), one column by the
+    sort route, and gives the numpy engine's table, itemsets and levels."""
+    rng = np.random.default_rng(7)
+    D = np.concatenate([rng.integers(0, 5, size=(3000, 6)),
+                        rng.choice(np.array([-(10**12), 0, 5, 10**12]), size=(3000, 1))], axis=1)
+    with TRACER.start("request"):
+        got = mine(D, KyivConfig(tau=2, kmax=3))
+    (sp,) = TRACER.last(1)[0].find("itemize")
+    assert (sp.attrs["path"], sp.attrs["dense_cols"], sp.attrs["sorted_cols"]) == ("cuda", 6, 1)
+    want = mine(D, KyivConfig(tau=2, kmax=3, engine="numpy"))
+    assert_same_table(got.prep.table, want.prep.table)
+    assert sorted(got.itemsets) == sorted(want.itemsets)
+    tup = lambda s: (s.k, s.candidates, s.support_pruned, s.bound_pruned, s.intersections,
+                     s.emitted, s.skipped_absent_uniform, s.stored)
+    assert list(map(tup, got.stats)) == list(map(tup, want.stats))
