@@ -452,10 +452,15 @@ def _mine_preprocessed_inner(
             start_k = st.next_k
 
     def make_state(next_k: int, fr: LevelFrontier, gp) -> MiningState:
+        # inside the caller's ``mine.checkpoint`` span: the stored level's
+        # bitsets to the host, the checkpoint's one device->host copy
+        with _obs_span("checkpoint.copy") as sp:
+            level = fr.as_level(n_words=n_words)
+            sp.set(bytes=int(level.bits.nbytes) if level.bits is not None else 0)
         return MiningState(
             results=results,
             stats=stats,
-            level=fr.as_level(n_words=n_words),
+            level=level,
             grandparent_index=gp,
             next_k=next_k,
         )

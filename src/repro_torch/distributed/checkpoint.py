@@ -32,6 +32,8 @@ import zlib
 import numpy as np
 import torch
 
+from ..obs.trace import span as _obs_span
+
 __all__ = ["CheckpointManager", "save_pytree", "load_pytree"]
 
 
@@ -58,8 +60,9 @@ def _to_host(obj):
     return obj
 
 
-def save_pytree(path: str, tree, extra_meta: dict | None = None) -> None:
-    """Atomic write of a pytree of arrays/scalars to ``path`` (a directory)."""
+def save_pytree(path: str, tree, extra_meta: dict | None = None) -> int:
+    """Atomic write of a pytree of arrays/scalars to ``path`` (a directory).
+    Returns the bytes of the arrays written."""
     flat: dict = {}
     _flatten("", _to_host(tree), flat)
     tmp = path + ".tmp"
@@ -88,6 +91,7 @@ def save_pytree(path: str, tree, extra_meta: dict | None = None) -> None:
     if os.path.exists(path):
         shutil.rmtree(path)
     os.rename(tmp, path)
+    return sum(int(a.nbytes) for a in arrays.values())
 
 
 def _unflatten(flat_arrays: dict, flat_scalars: dict):
@@ -163,19 +167,23 @@ class CheckpointManager:
     def save(self, step: int, tree, meta: dict | None = None, blocking: bool = True) -> None:
         meta = dict(meta or {}, step=step)
         self.wait()
+        if blocking:
+            # one span over the whole save, from the host copy through the
+            # rename and the prune (attr ``bytes``: the arrays written)
+            with _obs_span("checkpoint.write", step=step) as sp:
+                sp.set(bytes=save_pytree(self._step_dir(step), tree, meta))
+                self._prune()
+            return
         # copy tensors to the host on the caller's thread, so the async
         # writer never races live (device) buffers
         tree = _to_host(tree)
-        if not blocking:
-            def work():
-                save_pytree(self._step_dir(step), tree, meta)
-                self._prune()
 
-            self._pending = threading.Thread(target=work, daemon=True)
-            self._pending.start()
-        else:
+        def work():
             save_pytree(self._step_dir(step), tree, meta)
             self._prune()
+
+        self._pending = threading.Thread(target=work, daemon=True)
+        self._pending.start()
 
     def wait(self) -> None:
         if self._pending is not None:

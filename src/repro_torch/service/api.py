@@ -663,7 +663,9 @@ class MiningService:
 
             def on_level_end(level, state, _mgr=mgr):
                 if level % self.job_checkpoint_levels == 0:
-                    blob = pickle.dumps(state, protocol=pickle.HIGHEST_PROTOCOL)
+                    with _obs_span("checkpoint.encode") as sp:
+                        blob = pickle.dumps(state, protocol=pickle.HIGHEST_PROTOCOL)
+                        sp.set(bytes=len(blob))
                     _mgr.save(
                         level,
                         {"state": np.frombuffer(blob, dtype=np.uint8)},
