@@ -21,7 +21,12 @@ machine: the kernels build from the sources in the checkout into
    the CPU tests' edge tables (both column routes), both benchmark cells'
    tables at full size and phase 7's exposed table, nothing left allocated,
    and timed at the cells' shapes beside their byte bound (the int64 table
-   read once, the bits written once), the upload and the whole call;
+   read once, the bits written once), the upload and the whole call; then
+   the CRC-32 kernels (``kernels/crc32``, phase crc32) against ``zlib.crc32``
+   of the same bytes on the host, at the CPU tests' edge lengths and at the
+   job checkpoint's largest array (level 3 of the Poker-hand mine, 66,810 x
+   32,032 words), contiguous and as the leading columns of a padded matrix
+   read at its pitch, and timed beside their byte bound and zlib's time;
 3. main path: a cold mine of the paper's Poker-hand shape (1,000,000 rows,
    10 columns, tau=1, kmax=4, default settings) with ``engine="cuda"``, then
    with ``engine="torch"`` on the same card; ``prepare`` must itemize on the
@@ -38,9 +43,10 @@ machine: the kernels build from the sources in the checkout into
    Connect-4 mine that does not donate (the non-donating fused write
    kernel), each ``cuda`` against ``torch`` and against the indexed mine;
 6. checkpoint: the port's CLI mines a 100,000-row Poker-hand table with
-   ``--ckpt-dir``; the run is stopped after level 3 (level 4's checkpoint is
-   removed), restored from disk and resumed, and must equal the
-   uninterrupted mine;
+   ``--ckpt-dir``, whose saves stream the level's bits from the card (each
+   CRC kernel launched once per save with rows); the run is stopped after
+   level 3 (level 4's checkpoint is removed), restored from disk and
+   resumed, and must equal the uninterrupted mine;
 7. privacy: the exposed table (``exposed_dataset``, 500,000 x 6, tau=1,
    kmax=3; cut from 1,000,000 rows, whose numpy-engine mine alone takes
    over a minute of host time, PERF.md) mined with ``engine="cuda"``,
@@ -84,7 +90,8 @@ machine: the kernels build from the sources in the checkout into
    0 and leave a snapshot; a third start recovers from it with no WAL
    record, reports the clean stop, serves ``/debug/bundle`` (gzipped JSON),
    and answers a durable cold mine, timed beside phase 8's plain one with
-   each level checkpoint's bytes and seconds (from the flight ring);
+   each level checkpoint's bytes and seconds (from the flight ring), whose
+   server launched each CRC kernel once per level save with rows;
 10. mesh: the word-sharded mesh (``core.sharded``) on phase 3's Poker-hand
    mine, not cut: ``make_sharded_pipeline`` on a 2x2 mesh (pairs over
    ``data``, words over ``model``) with the device frontier, again with its
@@ -267,6 +274,12 @@ PRIVACY_ROWS = 500_000
 ITEMIZE = ("itemize_presence", "itemize_bits", "itemize_stats")
 ITEMIZE_SOURCE = "src/repro_torch/kernels/itemize/csrc/itemize.cu"
 ITEMIZE_REPLACES = "src/repro/core/items.py:115"  # the host itemize the kernels take over
+CRC32 = ("crc32_blocks", "crc32_finish")
+CRC32_SOURCE = "src/repro_torch/kernels/crc32/csrc/crc32.cu"
+CRC32_REPLACES = "src/repro/distributed/checkpoint.py:69"  # zlib.crc32 of a tobytes() copy
+# level 3 of the Poker-hand mine (tau=1, kmax=4): its stored rows and words,
+# the job checkpoint's largest array (8.56 GB)
+LEVEL3_ROWS, LEVEL3_WORDS = 66_810, 32_032
 # Pallas kernels replaced, by wrapper name: (file:line of the TPU kernel,
 # writes the child, classifies). The gathered wrappers (name ends in
 # "_gathered" or "_gathered_donating") take pre-gathered operand rows.
@@ -833,6 +846,61 @@ def phase_itemize(device) -> dict:
     return rows
 
 
+def phase_crc32(device) -> dict:
+    """The CRC-32 kernels (``kernels/crc32/csrc/crc32.cu``) against
+    ``zlib.crc32`` of the same bytes on the host, their plain version: at
+    the CPU tests' edge lengths (and one byte in), then at level 3's array,
+    contiguous and as the leading ``LEVEL3_WORDS`` columns of a matrix
+    padded by 8 words, read at its pitch; each call launches each kernel
+    once. Then both timed by CUDA events beside their byte bound (the bytes
+    read once) and zlib's time over the host copy."""
+    import zlib
+
+    from repro_torch.kernels.crc32 import LAUNCHES, crc32, crc32_launch, reset_launches, rows_view
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    calls = 0
+    rng = np.random.default_rng(2**31 + 30)
+    for length in (0, 1, 3, 4, 4095, (1 << 20) + 7):
+        data = rng.integers(0, 256, length, dtype=np.uint8)
+        t = torch.from_numpy(data).to(device)
+        if crc32(t) != zlib.crc32(data):
+            fail(f"crc32: {length} bytes differ from zlib")
+        calls += length > 0
+        if length > 1:
+            if crc32(t[1:]) != zlib.crc32(data[1:]):
+                fail(f"crc32: {length} bytes from the second differ from zlib")
+            calls += 1
+    rows, words = LEVEL3_ROWS, LEVEL3_WORDS
+    padded = torch.randint(-(2**31), 2**31 - 1, (rows, words + 8), dtype=torch.int32,
+                           device=device)
+    view = padded[:, :words]
+    level = view.contiguous()
+    host = level.cpu().numpy()
+    t0 = time.perf_counter()
+    want = zlib.crc32(host)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    del host
+    got = {"contiguous": crc32(level), "padded": crc32(view)}
+    calls += 2
+    if any(v != want for v in got.values()):
+        fail(f"crc32: level 3's array {got}, zlib {want}")
+    launches = dict(LAUNCHES)
+    if launches != {k: calls for k in CRC32}:
+        fail(f"crc32: launched {launches} in {calls} calls")
+    nbytes = rows * words * 4
+    row = {"shape": [rows, words], "pitch_words": words + 8, "bytes": nbytes,
+           "kernel_ms": time_ms(lambda: crc32_launch(rows_view(level)), 10),
+           "padded_ms": time_ms(lambda: crc32_launch(rows_view(view)), 10),
+           "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    del padded, view, level
+    torch.cuda.empty_cache()
+    print("phase crc32: ok " + json.dumps({"checks": calls, "launches": launches, "kernels": row,
+                                          "phase_s": time.perf_counter() - t_phase}), flush=True)
+    return row
+
+
 # -- phases 3 and 4 ---------------------------------------------------------
 
 
@@ -1014,10 +1082,18 @@ def _resume_from_cli_checkpoint(ckpt_dir: Path, out_json: Path, prep, cfg):
     )
 
 
+def _bits_bytes(step_dir: Path) -> int:
+    """The bytes of a committed checkpoint's ``bits`` array, by its
+    manifest (0 where it has none)."""
+    meta = json.loads((step_dir / "manifest.json").read_text())["arrays"].get("bits")
+    return int(np.prod(meta["shape"])) * np.dtype(meta["dtype"]).itemsize if meta else 0
+
+
 def phase_checkpoint(device):
     from repro_torch.core import KyivConfig, prepare
     from repro_torch.core.kyiv import mine_preprocessed
     from repro_torch.data.synth import poker_like
+    from repro_torch.kernels import crc32 as crc
     from repro_torch.launch import mine as launch_mine
 
     n = 100_000
@@ -1025,12 +1101,19 @@ def phase_checkpoint(device):
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     try:
+        crc.reset_launches()
         t0 = time.perf_counter()
         launch_mine.main(["--dataset", "poker", "--n", str(n), "--tau", "1", "--kmax", "4",
                           "--engine", "cuda", "--device", str(device),
                           "--ckpt-dir", str(work / "ckpt"), "--out", str(work / "out.json")])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
+        # the CLI's hook takes the level's words on the card: each save with
+        # rows streams them, its CRC taken by the kernels
+        crc_launches = dict(crc.LAUNCHES)
+        saves = sum(_bits_bytes(p) > 0 for p in (work / "ckpt").glob("ckpt_*"))
+        if not saves or crc_launches != {k: saves for k in CRC32}:
+            fail(f"checkpoint: {saves} level saves with rows launched {crc_launches}")
         cfg = KyivConfig(tau=1, kmax=4, device=str(device))
         prep = prepare(poker_like(n=n, seed=0), cfg)
         full = mine_preprocessed(prep, cfg)
@@ -1050,6 +1133,7 @@ def phase_checkpoint(device):
         "dataset": f"poker_like(n={n}, m=10, seed=0)", "tau": 1, "kmax": 4,
         "emitted": len(full.itemsets), "cli_with_checkpoints_s": cli_s,
         "uninterrupted_s": full.wall_time, "resume_s": resume_s, "checkpoint_bytes": ckpt_bytes,
+        "crc32_launches": crc_launches,
     }), flush=True)
 
 
@@ -1531,7 +1615,8 @@ class _JobWatch:
     """Polls a service's ``wal_dir/jobs`` on a thread: for each level
     checkpoint written while it watches, when its temporary directory
     appeared, when the committed step appeared (``manifest.json`` inside),
-    and its bytes. Steps already committed when it starts are left out."""
+    its bytes and its ``bits`` array's. Steps already committed when it
+    starts are left out."""
 
     def __init__(self, jobs_root: Path):
         import threading
@@ -1570,8 +1655,9 @@ class _JobWatch:
                         continue
                     try:
                         rec["bytes"] = sum(f.stat().st_size for f in path.iterdir())
+                        rec["bits_bytes"] = _bits_bytes(path)
                     except FileNotFoundError:
-                        rec["bytes"] = None
+                        rec["bytes"] = rec["bits_bytes"] = None
                     rec["done"] = now
 
     def stop(self) -> None:
@@ -1582,7 +1668,7 @@ class _JobWatch:
         """The committed steps: bytes, seconds from ``t0`` to the commit, and
         the write window (first sight of the step's directory to its commit)."""
         return [{"job": job, "level": step, "bytes": rec.get("bytes"),
-                 "landed_s": rec["done"] - t0, "write_s": rec["done"] - rec["seen"]}
+                 "bits_bytes": rec.get("bits_bytes"), "landed_s": rec["done"] - t0, "write_s": rec["done"] - rec["seen"]}
                 for (job, step), rec in sorted(self.steps.items()) if "done" in rec]
 
 
@@ -1650,7 +1736,7 @@ def phase_durability(device, poker_res, svc: dict):
     from repro_torch.core.kyiv import mine_preprocessed
     from repro_torch.distributed.checkpoint import CheckpointManager
     from repro_torch.service import MiningService
-    from repro_torch.service.wal import restricted_loads
+    from repro_torch.service.api import job_state
 
     import gzip
 
@@ -1725,7 +1811,7 @@ def phase_durability(device, poker_res, svc: dict):
         # the newest step, resumed in this process on the card from the
         # server's own table: phase main's per-level stats
         state_tree, _ = CheckpointManager(str(job_dir), keep=2).restore(newest)
-        state = restricted_loads(np.asarray(state_tree["state"], dtype=np.uint8).tobytes())
+        state = job_state(state_tree)
         del state_tree
         cfg = KyivConfig(tau=1, kmax=4, engine="cuda", device=dev)
         local = MiningService(engine="cuda", device=dev)
@@ -1840,12 +1926,19 @@ def phase_durability(device, poker_res, svc: dict):
         out["bundle_bytes"] = len(raw)
 
         # 7. a durable cold mine, against the plain server's
+        crc_before = ask(port, "/stats", "stats before the durable cold mine")["launches"]["crc32"]
         cold = ask(port, "/mine?tau=1&kmax=4", "durable cold")
         if cold["source"] != "cold" or _value_sets_json(cold) != _value_sets(svc["cold_all"]):
             fail(f"durability: the durable cold mine: source {cold['source']}")
         out["durable_cold_s"] = out["requests"][-1]["wall_s"]
         watch.stop()
         out["durable_steps"] = watch.landed(t0)
+        # each level save with rows streamed its bits, CRC'd on the card
+        crc_after = ask(port, "/stats", "stats after the durable cold mine")["launches"]["crc32"]
+        saves = sum((st["bits_bytes"] or 0) > 0 for st in out["durable_steps"])
+        out["crc32_launches"] = {k: crc_after[k] - crc_before[k] for k in CRC32}
+        if not saves or out["crc32_launches"] != {k: saves for k in CRC32}:
+            fail(f"durability: {saves} level saves with rows launched {out['crc32_launches']}")
         _stop_server("durable 3", procs[2], logs[2])
         events = _ring_events(flight_dir, 3)
         out["checkpoint_s"] = _span_seconds(events, "mine.checkpoint")
@@ -1866,6 +1959,7 @@ def phase_durability(device, poker_res, svc: dict):
     print("phase durability: ok " + json.dumps(
         {"dataset": "poker_like(n=1000000, m=10, seed=0) via CSV", "tau": 1, "kmax": 4, **out},
         default=str), flush=True)
+    return out["crc32_launches"]
 
 
 # -- phase mesh --------------------------------------------------------------
@@ -4094,6 +4188,7 @@ def main() -> None:
 
     timing = phase_kernels(device, n_words, next_bucket(batch_cap), rates)
     itemize_rows = phase_itemize(device)
+    crc_row = phase_crc32(device)
     launches, *poker = phase_main(device)
     main_wall_s = poker[1].wall_time
     connect_launches, *connect = phase_host_classified(device)
@@ -4107,7 +4202,7 @@ def main() -> None:
     launches.update(cov_launches)
     torch.cuda.empty_cache()
     service = phase_service(device, poker_res)
-    phase_durability(device, poker_res, service)
+    crc_launches = phase_durability(device, poker_res, service)
     # the multi-device and multi-process paths: their launches add to the
     # main path's (rows 1-4 and both coverage kernels)
     for name, n in phase_mesh(device, poker_prep, poker_res, main_wall_s, poker_profile,
@@ -4182,6 +4277,17 @@ def main() -> None:
         "library_ms": None, "upload_ms": ph["upload_ms"], "itemize_ms": ph["itemize_ms"],
         **{f"connect4_{k}": c4[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "upload_ms",
                                             "itemize_ms")},
+    })
+    # the CRC-32 kernels as one entry: their time together over level 3's
+    # array, contiguous and padded; the launches are the durable server's
+    # cold mine's (phase durability)
+    kernels.append({
+        "name": "crc32", "kernels": ["crc32_blocks_kernel", "crc32_finish_kernel"],
+        "route": "cuda", "source": CRC32_SOURCE, "replaces": CRC32_REPLACES,
+        "launches": crc_launches, "max_abs_err": 0, "ms": crc_row["kernel_ms"],
+        "kernel_ms": crc_row["kernel_ms"], "plain_ms": crc_row["plain_ms"],
+        "bound_ms": crc_row["bound_ms"], "bound_by": crc_row["bound_by"], "library_ms": None,
+        "padded_ms": crc_row["padded_ms"], "bytes": crc_row["bytes"],
     })
     print(f"total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -54,6 +54,7 @@ import time
 from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from ..kernels.intersect.ops import LegacyIntersectPipeline, LevelPipeline
 from ..obs import metrics as _om
@@ -292,10 +293,17 @@ class MiningState:
     Produced for every ``on_level_end`` callback and accepted back as
     ``resume_state``, to restart a run without redoing earlier levels.
     Mapping-style access (``state["level"]``) works as in the reference.
-    ``level.bits`` is always host uint32 numpy here, word padding stripped
-    (the one deliberate device->host copy of the frontier path), so states
-    stay picklable and resumable under any placement;
+    ``level.bits`` is host uint32 numpy here, word padding stripped (the
+    one deliberate device->host copy of the frontier path), so states stay
+    picklable and resumable under any placement;
     ``repro_torch.convert`` carries them to and from the reference package.
+    A hook that declares ``device_bits = True`` on itself gets instead the
+    level's uint32 words where they lie (a device tensor, or host numpy)
+    as a view, padding stripped, with no copy: valid only during the call
+    (the next level may overwrite them), so such a hook uses them within
+    the call and keeps nothing. The service's job checkpoint and the CLI's
+    ``--ckpt-dir`` hook declare it (each saves blocking and keeps nothing);
+    a hook that keeps states (tests, ``convert``) does not.
     """
 
     results: list[tuple[tuple[int, ...], int]]
@@ -451,12 +459,19 @@ def _mine_preprocessed_inner(
             grandparent_index = st.grandparent_index
             start_k = st.next_k
 
+    device_bits = bool(getattr(on_level_end, "device_bits", False))
+
     def make_state(next_k: int, fr: LevelFrontier, gp) -> MiningState:
-        # inside the caller's ``mine.checkpoint`` span: the stored level's
-        # bitsets to the host, the checkpoint's one device->host copy
-        with _obs_span("checkpoint.copy") as sp:
-            level = fr.as_level(n_words=n_words)
-            sp.set(bytes=int(level.bits.nbytes) if level.bits is not None else 0)
+        if device_bits and isinstance(fr.bits, (torch.Tensor, np.ndarray)):
+            bits = fr.bits[:, :n_words]
+            bits = bits.view(torch.uint32 if isinstance(bits, torch.Tensor) else np.uint32)
+            level = Level(k=fr.k, itemsets=fr.itemsets, counts=fr.counts, bits=bits)
+        else:
+            # inside the caller's ``mine.checkpoint`` span: the stored
+            # level's bitsets to the host, the checkpoint's one copy
+            with _obs_span("checkpoint.copy") as sp:
+                level = fr.as_level(n_words=n_words)
+                sp.set(bytes=int(level.bits.nbytes) if level.bits is not None else 0)
         return MiningState(
             results=results,
             stats=stats,

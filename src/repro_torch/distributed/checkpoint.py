@@ -13,10 +13,20 @@ format.
     manifest; `load` verifies before handing state back.
 
 State is a pytree (nested dicts, lists, tuples) of numpy arrays, torch
-tensors and JSON-able leaves, stored as `arrays.npz` + `manifest.json`. A
-torch tensor, on the CPU or a CUDA device, is copied to host numpy first, so
-the files are exactly those the reference package writes: a checkpoint
-written by either package loads in the other.
+tensors and JSON-able leaves, stored as `arrays.npz` + `manifest.json`, the
+files the reference package writes: a checkpoint written by either package
+loads in the other. The `.npz` is written by hand (`npz.NpzWriter`), each
+array's bytes once, and each is CRC'd once:
+
+  * a host leaf in place on the host (`zlib.crc32`): a numpy array, or a
+    CPU tensor's row-major bytes (made contiguous inside one
+    `checkpoint.copy` span, attr `bytes`);
+  * a CUDA tensor leaf streams: it goes to the host in pieces of at most
+    `STAGE_BYTES` through two pinned buffers on a copy stream, one piece
+    copied while the one before is written, and its CRC is taken on the
+    card from the same words (`kernels.crc32`); a padded matrix's leading
+    columns are read at their pitch, nothing copied on the card. One
+    `checkpoint.copy` span (attr `bytes`) a piece: the host's wait for it.
 """
 
 from __future__ import annotations
@@ -28,13 +38,19 @@ import shutil
 import threading
 import time
 import zlib
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..obs.trace import span as _obs_span
+from .npz import NpzWriter
 
-__all__ = ["CheckpointManager", "save_pytree", "load_pytree"]
+__all__ = ["CheckpointManager", "STAGE_BYTES", "Saved", "save_pytree", "load_pytree"]
+
+# bytes of a torch tensor leaf copied and written at a time (the size of each
+# of a CUDA device's two pinned staging buffers)
+STAGE_BYTES = 64 << 20
 
 
 def _flatten(prefix: str, obj, out: dict):
@@ -60,38 +76,134 @@ def _to_host(obj):
     return obj
 
 
-def save_pytree(path: str, tree, extra_meta: dict | None = None) -> int:
-    """Atomic write of a pytree of arrays/scalars to ``path`` (a directory).
-    Returns the bytes of the arrays written."""
+class _Staging:
+    """A CUDA device's two pinned host buffers and its copy stream, made at
+    the first save of a tensor on it and kept for the process (pinning
+    memory takes time); one save streams through them at a time."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+        self.bufs = [torch.empty(STAGE_BYTES, dtype=torch.uint8, pin_memory=True) for _ in range(2)]
+        self.events = [torch.cuda.Event() for _ in range(2)]
+        self.lock = threading.Lock()
+
+
+_STAGING: dict[torch.device, _Staging] = {}
+_STAGING_LOCK = threading.Lock()
+
+
+def _staging(device: torch.device) -> _Staging:
+    with _STAGING_LOCK:
+        st = _STAGING.get(device)
+        if st is None:
+            st = _STAGING[device] = _Staging(device)
+        return st
+
+
+def _pieces(u8: torch.Tensor, limit: int) -> list[tuple[int, int, int, int]]:
+    """``(row0, rows, col0, width)`` pieces of a ``rows_view`` in row-major
+    order, each at most ``limit`` bytes: whole rows where a row fits."""
+    rows, width = u8.shape
+    if rows == 1 or width > limit:
+        return [(r, 1, c, min(limit, width - c)) for r in range(rows) for c in range(0, width, limit)]
+    step = limit // width
+    return [(r, min(step, rows - r), 0, width) for r in range(0, rows, step)]
+
+
+def _stream_cuda(out: NpzWriter, u8: torch.Tensor) -> int:
+    """Write a CUDA ``rows_view``'s bytes through the device's pinned
+    staging; its CRC-32, taken on the card."""
+    from ..kernels.crc32 import copy_rows, crc32_launch
+
+    st = _staging(u8.device)
+    with st.lock:
+        # the words were written on the current stream: the copies follow
+        # them, and the CRC runs beside the copies
+        st.stream.wait_stream(torch.cuda.current_stream(u8.device))
+        crc = crc32_launch(u8)
+        pieces = _pieces(u8, st.bufs[0].numel())
+
+        def issue(i: int) -> None:
+            r0, rows, c0, width = pieces[i]
+            copy_rows(st.bufs[i % 2], u8, r0, rows, c0, width, st.stream)
+            st.events[i % 2].record(st.stream)
+
+        try:
+            for i in range(min(2, len(pieces))):
+                issue(i)
+            for i, (_, rows, _, width) in enumerate(pieces):
+                with _obs_span("checkpoint.copy", bytes=rows * width):
+                    st.events[i % 2].synchronize()
+                out.write(st.bufs[i % 2].numpy()[: rows * width])
+                if i + 2 < len(pieces):  # the buffer just written is free again
+                    issue(i + 2)
+        finally:
+            # no copy outlives the save into a buffer the next save reuses
+            st.stream.synchronize()
+        return int(crc.item()) & 0xFFFFFFFF
+
+
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+class Saved(NamedTuple):
+    """What :func:`save_pytree` wrote: ``nbytes``, the arrays' bytes;
+    ``streamed``, those of its CUDA tensor leaves, which went from the card
+    to the file through the staging; ``crc``, where the CRCs of those were
+    taken, ``"cuda"``, or ``"host"`` where no leaf streamed."""
+
+    nbytes: int
+    streamed: int
+    crc: str
+
+
+def save_pytree(path: str, tree, extra_meta: dict | None = None) -> Saved:
+    """Atomic write of a pytree of arrays/scalars to ``path`` (a directory)."""
+    from ..kernels.crc32 import rows_view
+
     flat: dict = {}
-    _flatten("", _to_host(tree), flat)
+    _flatten("", tree, flat)
     tmp = path + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
     manifest = {"arrays": {}, "scalars": {}, "meta": extra_meta or {}, "time": time.time()}
-    arrays = {}
-    for key, val in flat.items():
-        if key.endswith("#type"):
-            manifest["scalars"][key] = val
-            continue
-        if hasattr(val, "shape") and hasattr(val, "dtype"):
-            arr = np.asarray(val)
-            arrays[key] = arr
-            manifest["arrays"][key] = {
-                "shape": list(arr.shape),
-                "dtype": str(arr.dtype),
-                "crc32": zlib.crc32(arr.tobytes()),
-            }
-        else:
-            manifest["scalars"][key] = val
-    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+    written = streamed = 0
+    with NpzWriter(os.path.join(tmp, "arrays.npz")) as out:
+        for key, val in flat.items():
+            if key.endswith("#type") or not (hasattr(val, "shape") and hasattr(val, "dtype")):
+                manifest["scalars"][key] = val
+                continue
+            if isinstance(val, torch.Tensor) and val.device.type == "cuda":
+                dtype, shape = _np_dtype(val.dtype), tuple(val.shape)
+                out.begin(key, dtype, shape)
+                u8 = rows_view(val.detach())
+                crc = _stream_cuda(out, u8) if u8.numel() else 0
+                streamed += u8.numel()
+            else:
+                if isinstance(val, torch.Tensor):
+                    with _obs_span("checkpoint.copy", bytes=val.numel() * val.element_size()):
+                        arr = val.detach().contiguous().numpy()
+                else:
+                    arr = np.asarray(val)
+                    if not arr.flags.c_contiguous:
+                        arr = np.ascontiguousarray(arr)
+                if arr.dtype.hasobject:
+                    raise TypeError(f"checkpoint leaf {key!r}: an object array has no bytes to save")
+                dtype, shape = arr.dtype, arr.shape
+                out.begin(key, dtype, shape)
+                out.write(arr)
+                crc = zlib.crc32(arr)
+            out.end(crc)
+            written += int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+            manifest["arrays"][key] = {"shape": list(shape), "dtype": str(dtype), "crc32": crc}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(path):
         shutil.rmtree(path)
     os.rename(tmp, path)
-    return sum(int(a.nbytes) for a in arrays.values())
+    return Saved(written, streamed, "cuda" if streamed else "host")
 
 
 def _unflatten(flat_arrays: dict, flat_scalars: dict):
@@ -129,7 +241,7 @@ def load_pytree(path: str, verify: bool = True):
             arr = arrays[k]
             if list(arr.shape) != meta["shape"] or str(arr.dtype) != meta["dtype"]:
                 raise IOError(f"checkpoint corrupt: {k} shape/dtype mismatch")
-            if zlib.crc32(arr.tobytes()) != meta["crc32"]:
+            if zlib.crc32(np.ascontiguousarray(arr)) != meta["crc32"]:
                 raise IOError(f"checkpoint corrupt: {k} CRC mismatch")
     return _unflatten(arrays, manifest["scalars"]), manifest["meta"]
 
@@ -168,10 +280,11 @@ class CheckpointManager:
         meta = dict(meta or {}, step=step)
         self.wait()
         if blocking:
-            # one span over the whole save, from the host copy through the
-            # rename and the prune (attr ``bytes``: the arrays written)
+            # one span over the whole save, through the rename and the prune
+            # (attrs ``bytes``: the arrays written; ``streamed``, ``crc``)
             with _obs_span("checkpoint.write", step=step) as sp:
-                sp.set(bytes=save_pytree(self._step_dir(step), tree, meta))
+                saved = save_pytree(self._step_dir(step), tree, meta)
+                sp.set(bytes=saved.nbytes, streamed=saved.streamed, crc=saved.crc)
                 self._prune()
             return
         # copy tensors to the host on the caller's thread, so the async

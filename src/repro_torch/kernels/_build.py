@@ -29,6 +29,7 @@ SOURCES = {
     "tiled": _PKG / "intersect" / "csrc" / "tiled.cu",
     "probe": _PKG / "probe" / "csrc" / "rates.cu",
     "itemize": _PKG / "itemize" / "csrc" / "itemize.cu",
+    "crc32": _PKG / "crc32" / "csrc" / "crc32.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

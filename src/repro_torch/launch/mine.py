@@ -87,6 +87,8 @@ def main(argv=None) -> None:
                         "bits": lvl.bits, "next_k": state["next_k"]},
                     {"tau": cfg.tau, "kmax": cfg.kmax})
 
+        hook.device_bits = True  # saved within the call, kept nowhere (MiningState)
+
     res = mine_preprocessed(prep, cfg, pipeline_factory=pipeline_factory, on_level_end=hook)
 
     print(f"dataset {D.shape}, |L| = {prep.n_l}, tau={cfg.tau}, kmax={cfg.kmax}, "

@@ -64,6 +64,7 @@ from ..obs.trace import span as _obs_span
 from ..obs.trace import start_trace as _obs_start_trace
 from ..distributed.checkpoint import CheckpointManager
 from ..kernels.coverage import coverage as _cov_kernels
+from ..kernels.crc32 import ops as _crc32_kernels
 from ..kernels.intersect import LevelPipeline
 from ..kernels.intersect import intersect as _intersect_kernels
 from ..kernels.intersect import tiled as _tiled_kernel
@@ -84,9 +85,23 @@ __all__ = [
     "NotReadyError",
     "DeviceUnavailable",
     "DeadlineExceeded",
+    "job_state",
 ]
 
 _PREP_CACHE_CAPACITY = 8
+
+
+def job_state(tree: dict):
+    """The ``MiningState`` a job checkpoint's tree holds: the pickled state
+    (``"state"``, read by ``restricted_loads``) with the level's bits put
+    back from their own array (``"bits"``). A tree whose blob holds its
+    bits, as job checkpoints were written before the bits were saved
+    apart, loads as it is."""
+    state = restricted_loads(np.asarray(tree["state"], dtype=np.uint8).tobytes())
+    if "bits" in tree:
+        state.level.bits = np.asarray(tree["bits"], dtype=np.uint32)
+    return state
+
 
 _MINE_REQUESTS = _om.counter(
     "repro_service_mine_requests_total",
@@ -619,17 +634,15 @@ class MiningService:
 
     @staticmethod
     def _restore_job(mgr: CheckpointManager):
-        """The newest level checkpoint's ``MiningState``, or None. A blob
-        that does not load (a corrupt step, or one naming another package's
-        classes, such as the reference's) drops the job: the mine runs cold
-        and never imports what the blob names."""
+        """The newest level checkpoint's ``MiningState`` (:func:`job_state`),
+        or None. A blob that does not load (a corrupt step, or one naming
+        another package's classes, such as the reference's) drops the job:
+        the mine runs cold and never imports what the blob names."""
         try:
             state_tree, _meta = mgr.restore()
             if state_tree is None:
                 return None
-            return restricted_loads(
-                np.asarray(state_tree["state"], dtype=np.uint8).tobytes()
-            )
+            return job_state(state_tree)
         except Exception:
             mgr.destroy()
             return None
@@ -663,14 +676,20 @@ class MiningService:
 
             def on_level_end(level, state, _mgr=mgr):
                 if level % self.job_checkpoint_levels == 0:
+                    # the level's bits (on a device, a view of its words)
+                    # are saved as their own array, streamed to the file
+                    # within this call; the rest is pickled
+                    bits = state.level.bits
                     with _obs_span("checkpoint.encode") as sp:
-                        blob = pickle.dumps(state, protocol=pickle.HIGHEST_PROTOCOL)
+                        blob = pickle.dumps(
+                            dataclasses.replace(state, level=dataclasses.replace(state.level, bits=None)),
+                            protocol=pickle.HIGHEST_PROTOCOL,
+                        )
                         sp.set(bytes=len(blob))
-                    _mgr.save(
-                        level,
-                        {"state": np.frombuffer(blob, dtype=np.uint8)},
-                        blocking=True,
-                    )
+                    tree = {"state": np.frombuffer(blob, dtype=np.uint8)}
+                    if bits is not None:
+                        tree["bits"] = bits
+                    _mgr.save(level, tree, blocking=True)
                     # durable flight event — its inline fsync also carries
                     # every buffered span-open to disk, so a death right
                     # after the checkpoint still yields a ring that names
@@ -681,6 +700,8 @@ class MiningService:
                 # the kill-mid-mine seam fires *after* the save — simulated
                 # death leaves the checkpoint the restart resumes from
                 self.injector.check("mine.level_end")
+
+            on_level_end.device_bits = True  # saved within the call, kept nowhere
 
         def mine_run(factory):
             return mine_preprocessed(
@@ -1592,6 +1613,7 @@ class MiningService:
                 "intersect": dict(_intersect_kernels.LAUNCHES),
                 "coverage": dict(_cov_kernels.LAUNCHES),
                 "tiled": dict(_tiled_kernel.LAUNCHES),
+                "crc32": dict(_crc32_kernels.LAUNCHES),
             },
             # registry fold-in: every metric family in one consistent
             # (single-lock) snapshot, plus the tracer's ring-buffer state.

@@ -1,10 +1,14 @@
 """The durable path's checkpoint spans: inside each ``mine.checkpoint`` span
-a durable cold mine opens ``checkpoint.copy`` (the stored level's bitsets to
-the host), ``checkpoint.encode`` (the service's pickle of the state) and
-``checkpoint.write`` (``CheckpointManager.save`` through the rename and the
-prune), once per level boundary, and their ``bytes`` are what was written.
-A level hook that saves with ``CheckpointManager`` (the CLI's
-``--ckpt-dir``) gets ``copy`` and ``write`` with no code of its own."""
+a durable cold mine opens ``checkpoint.encode`` (the service's pickle of the
+state without its bits) and ``checkpoint.write`` (``CheckpointManager.save``
+through the rename and the prune), once per level boundary. Their ``bytes``
+are what was written, and the write's ``streamed`` and ``crc`` say which
+path the bits took: on the CPU they are saved as a host array, so nothing
+streams, and inside the write one ``checkpoint.copy`` makes the level's
+words contiguous (on a card, one a piece of the bits as they stream:
+``tests/test_torch_gpu_durability.py``). A level hook
+that saves with ``CheckpointManager`` and does not declare ``device_bits``
+gets ``copy`` (its host bits) and ``write`` with no code of its own."""
 
 import os
 
@@ -52,10 +56,19 @@ def test_durable_cold_mine_opens_copy_encode_write_per_level_boundary(tmp_path, 
         ckpts = trace.find("mine.checkpoint")
         # one boundary per level the loop ran (k = 2 .. kmax), each saved
         assert [s.attrs["k"] for s in ckpts] == [s.k for s in r.result.stats[1:]] == [2, 3, 4]
+        bits = []
         for c in ckpts:
             inner = _inner(trace, c)
-            assert {n: len(v) for n, v in inner.items()} == dict.fromkeys(CKPT_SPANS, 1)
-            assert inner["checkpoint.write"][0].attrs["bytes"] == inner["checkpoint.encode"][0].attrs["bytes"] > 0
+            assert {n: len(v) for n, v in inner.items()} == {"checkpoint.encode": 1,
+                                                             "checkpoint.write": 1}
+            write = inner["checkpoint.write"][0]
+            copies = _inner(trace, write).get("checkpoint.copy", [])
+            assert set(_inner(trace, write)) <= {"checkpoint.copy"} and len(copies) <= 1
+            assert write.attrs["streamed"] == 0 and write.attrs["crc"] == "host"  # host words
+            bits.append(write.attrs["bytes"] - inner["checkpoint.encode"][0].attrs["bytes"])
+            assert sum(s.attrs["bytes"] for s in copies) == bits[-1]
+        # the blob and the level's words; level 4 (kmax) stores no rows
+        assert [b > 0 and b % 4 == 0 for b in bits] == [True, True, False]
         assert not any(s.parent_id is None or s.name not in CKPT_SPANS for s in trace.spans
                        if s.name.startswith("checkpoint."))
 
@@ -70,21 +83,25 @@ def test_durable_cold_mine_opens_copy_encode_write_per_level_boundary(tmp_path, 
         assert mgr.steps() == [2, 3]
         for c in trace.find("mine.checkpoint"):
             inner = _inner(trace, c)
+            write = inner["checkpoint.write"][0]
             tree, meta = load_pytree(os.path.join(mgr.directory, f"ckpt_{c.attrs['k']:010d}"))
-            blob = tree["state"]
-            assert meta["step"] == c.attrs["k"] == inner["checkpoint.write"][0].attrs["step"]
-            assert inner["checkpoint.write"][0].attrs["bytes"] == blob.nbytes
+            blob, bits = tree["state"], tree["bits"]
+            assert meta["step"] == c.attrs["k"] == write.attrs["step"]
+            assert write.attrs["bytes"] == blob.nbytes + bits.nbytes
             assert inner["checkpoint.encode"][0].attrs["bytes"] == blob.nbytes
             state = restricted_loads(blob.tobytes())
-            assert state.next_k == c.attrs["k"] + 1
-            assert inner["checkpoint.copy"][0].attrs["bytes"] == state.level.bits.nbytes > 0
+            assert state.next_k == c.attrs["k"] + 1 and state.level.bits is None
+            assert bits.dtype == np.uint32 and bits.shape[0] == state.level.t > 0
+            (copy,) = _inner(trace, write)["checkpoint.copy"]
+            assert copy.attrs["bytes"] == bits.nbytes and write.attrs["streamed"] == 0
     finally:
         svc.close()
 
 
 def test_a_level_hook_that_saves_gets_copy_and_write(tmp_path, tracer_reset):
-    """The CLI's ``--ckpt-dir`` hook: the level's arrays saved as they are,
-    no pickle, so no ``checkpoint.encode``."""
+    """A hook like the CLI's ``--ckpt-dir`` one but with no ``device_bits``:
+    the level's host arrays saved as they are, no pickle, so no
+    ``checkpoint.encode``."""
     cfg = KyivConfig(tau=1, kmax=3, engine="torch", device="cpu")
     cm = CheckpointManager(str(tmp_path / "ck"))
 
@@ -111,12 +128,14 @@ def test_a_level_hook_that_saves_gets_copy_and_write(tmp_path, tracer_reset):
 
 def test_no_trace_no_spans_and_the_same_files(tmp_path, tracer_reset):
     """Without an active trace no span is kept and the save writes what it
-    always wrote; ``save_pytree`` returns the arrays' bytes."""
+    always wrote; ``save_pytree`` returns the arrays' bytes (and that none
+    streamed)."""
     from repro_torch.distributed.checkpoint import save_pytree
 
     cm = CheckpointManager(str(tmp_path / "ck"), keep=1)
     cm.save(1, {"w": np.arange(6, dtype=np.int32)})
-    assert save_pytree(str(tmp_path / "one"), {"a": np.ones(3), "b": [np.zeros(2, np.uint8), 7]}) == 26
+    saved = save_pytree(str(tmp_path / "one"), {"a": np.ones(3), "b": [np.zeros(2, np.uint8), 7]})
+    assert (saved.nbytes, saved.streamed, saved.crc) == (26, 0, "host")
     tree, meta = load_pytree(cm._step_dir(1))
     assert meta["step"] == 1 and tree["w"].tolist() == list(range(6))
     assert TRACER.last(1) == []
